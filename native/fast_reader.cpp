@@ -2,7 +2,7 @@
 //
 // The reference's reader is C++ (std::ifstream >> extraction,
 // /root/reference/src/reader/file_matrix_reader.hpp:170-200); this is the
-// TPU framework's native equivalent: a single-pass strtod tokenizer that
+// framework's native equivalent: a single-pass strtod tokenizer that
 // parses the same grammar ("dense|sparse", dims, entries; complex entries
 // as "re im" pairs) into caller-provided buffers, ~20x faster than the
 // Python tokenizer on the 1M-row bench files. Error messages mirror the

@@ -1,6 +1,6 @@
-"""pcsc_eigenvalue_solver_project_tpu — a TPU-native eigenvalue-solver framework.
+"""pcsc_eigenvalue_solver_project_tpu — an eigenvalue-solver framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A re-design of the capabilities of
 ``hugoheziyang/PCSC_Eigenvalue_Solver_Project`` (a C++20/Eigen library):
 dense and sparse (CSR/ELL/block-sparse) real and complex matrices with a
 text-file reader, power iteration, shifted inverse power iteration, and the

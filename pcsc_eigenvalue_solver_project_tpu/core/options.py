@@ -36,8 +36,8 @@ class ShiftedSolverOptions(SolverOptions):
     """Options for solvers operating on ``(A - shift*I)``.
 
     ``shift`` may be real or complex. ``inner_*`` fields configure the inner
-    iterative linear solve used for sparse operators on TPU, where no
-    SparseLU analogue exists (the reference refactorises a SparseLU every
+    iterative linear solve used for large sparse operators (the reference
+    refactorises a SparseLU every
     outer iteration, solve_shifted.hpp:104-115; here the sparse path is a
     Krylov solve on the sharded SpMV instead).
     """
@@ -57,7 +57,7 @@ class QROptions(SolverOptions):
     QR sweeps on the Hessenberg form with the stopping rule
     ``max|subdiag| <= tol*(1+||H||_F)`` (qr_eigenvalues.hpp:69-93).
 
-    ``mode="accelerated"`` is the TPU-first superset: Wilkinson-shifted QR
+    ``mode="accelerated"`` is the superset: shifted QR
     sweeps with deflation, run in complex arithmetic so conjugate eigenvalue
     pairs of real matrices converge too (the reference's unshifted real
     iteration cannot separate them — a documented limitation it inherits).

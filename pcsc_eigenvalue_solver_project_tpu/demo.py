@@ -33,39 +33,56 @@ def _print_result(name, res):
           f"iterations = {int(res.iterations)}  converged = {bool(res.converged)}")
 
 
-def run_reference_demo(data_dir: str) -> int:
+def run_reference_demo(data_dir: str) -> dict:
+    """Run the reference demo flow, print it, and return its results by
+    name (``power_A``, ``power_B``, ``shifted_A``, ``shifted_B``,
+    ``solve_residual``, ``qr_A``) together with the matrices ``A``, ``B``."""
     import jax.numpy as jnp
     from . import (QROptions, ShiftedSolverOptions, SolverOptions, power_method,
                    qr_decompose, qr_eigenvalues, read_matrix_from_file,
-                   shifted_inverse_power_method, to_hessenberg)
+                   shifted_inverse_power_method, solve_shifted, to_hessenberg)
 
     dt = np.complex128
     a_path = os.path.join(data_dir, "A.txt")
     b_path = os.path.join(data_dir, "B.txt")
     A = read_matrix_from_file(a_path, dt)
     B = read_matrix_from_file(b_path, dt)
+    out = {"A": A, "B": B}
     print(f"Read A: dense {A.shape[0]}x{A.shape[1]} {A.dtype}")
     print(f"Read B: sparse {B.shape[0]}x{B.shape[1]} {B.dtype}, nnz={B.nnz}")
 
     opts = SolverOptions(max_iterations=1000, tolerance=1e-10)
     print("\nPower method (main.cpp:50-68):")
-    _print_result("A", power_method(A, opts))
-    _print_result("B", power_method(B, opts))
+    out["power_A"] = power_method(A, opts)
+    out["power_B"] = power_method(B, opts)
+    _print_result("A", out["power_A"])
+    _print_result("B", out["power_B"])
 
     print("\nShifted inverse power (main.cpp:71-97, sigma=3.1 / 2.3, tol=1e-12):")
-    _print_result("A sigma=3.1", shifted_inverse_power_method(
-        A, ShiftedSolverOptions(shift=3.1, tolerance=1e-12)))
-    _print_result("B sigma=2.3", shifted_inverse_power_method(
-        B, ShiftedSolverOptions(shift=2.3, tolerance=1e-12)))
+    out["shifted_A"] = shifted_inverse_power_method(
+        A, ShiftedSolverOptions(shift=3.1, tolerance=1e-12))
+    out["shifted_B"] = shifted_inverse_power_method(
+        B, ShiftedSolverOptions(shift=2.3, tolerance=1e-12))
+    _print_result("A sigma=3.1", out["shifted_A"])
+    _print_result("B sigma=2.3", out["shifted_B"])
+
+    b = jnp.ones((A.shape[0],), dt)
+    x = solve_shifted(A, 1.0 + 0j, b)
+    a = np.asarray(A.array)
+    out["solve_residual"] = float(np.abs((a - np.eye(a.shape[0])) @ np.asarray(x)
+                                         - np.asarray(b)).max())
+    print(f"\nsolve_shifted(A, 1, ones): max |(A - I) x - b| = "
+          f"{out['solve_residual']:.3g}")
 
     print("\nQR stack (main.cpp:100-146):")
     H = to_hessenberg(A)
     print(f"  Hessenberg(A): max |below subdiag| = "
           f"{float(np.abs(np.tril(np.asarray(H), -2)).max()):.3g}")
     Q, R = qr_decompose(A)
-    resid = float(np.abs(np.asarray(Q) @ np.asarray(R) - np.asarray(A.array)).max())
+    resid = float(np.abs(np.asarray(Q) @ np.asarray(R) - a).max())
     print(f"  QR(A): max |A - QR| = {resid:.3g}")
     qr = qr_eigenvalues(A, opts)
+    out["qr_A"] = qr
     vals = ", ".join(_fmt(v) for v in np.asarray(qr.eigenvalues))
     print(f"  qr_eigenvalues(A): [{vals}]  iterations = {int(qr.iterations)}"
           f"  converged = {bool(qr.converged)}")
@@ -73,7 +90,7 @@ def run_reference_demo(data_dir: str) -> int:
         qr_eigenvalues(B, opts)
     except ValueError as e:
         print(f"  qr_eigenvalues(B): raised as expected -> {e}")
-    return 0
+    return out
 
 
 def run_on_file(args) -> int:
@@ -145,17 +162,18 @@ def main(argv=None) -> int:
                     help="arnoldi/lanczos/lobpcg/subspace: number of eigenvalues")
     ap.add_argument("--which", default="LM", choices=["LM", "LA", "SA"],
                     help="lanczos/lobpcg: spectrum end to target")
-    ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
+    ap.add_argument("--cpu", action="store_true", help="run on the CPU backend")
     args = ap.parse_args(argv)
 
     import jax
-    if args.cpu or np.dtype(args.dtype).itemsize >= 8:
-        # f64/c128 are unsupported on the TPU backend
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    if np.dtype(args.dtype).itemsize >= 8:
         jax.config.update("jax_enable_x64", True)
 
     if args.file is None:
-        return run_reference_demo(args.data_dir)
+        run_reference_demo(args.data_dir)
+        return 0
     return run_on_file(args)
 
 

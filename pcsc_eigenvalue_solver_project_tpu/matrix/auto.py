@@ -1,16 +1,11 @@
-"""Automatic sparse-layout selection (round-5, VERDICT task 5).
+"""Automatic sparse-layout selection.
 
 The reference dispatches dense/sparse at runtime
-(/root/reference/src/power_method/power_method.hpp:141-147); on TPU the
-dispatch that matters is BETWEEN SPARSE LAYOUTS, because the measured
-SpMV throughputs differ by >100x (docs/PERF_NOTES.md):
-
-- interleaved DIA (banded/diagonal structure): 280+ Gnnz/s — HBM
-  speed-of-light on v5e;
-- segment-pruned / packed gather-ELL (column-local general sparse):
-  ~13 Gnnz/s;
-- packed gather-ELL on uniform random: ~2.6-12 Gnnz/s (the measured
-  VPU-bound floor for irreducible inputs).
+(reference src/power_method/power_method.hpp:141-147); here the
+dispatch that matters is BETWEEN SPARSE LAYOUTS: a banded pattern runs as
+interleaved DIA (fused slices, no index traffic), anything else as packed
+gather-ELL. Which layout wins at which fill has not been measured on the
+GPU yet (PERF.md, open questions).
 
 ``from_coo(..., layout="auto")`` inspects the COO pattern and picks the
 fastest layout the structure admits; ``suggest_layout`` exposes the
@@ -40,8 +35,7 @@ from .protocol import AbstractMatrix
 # reads 4 B/nnz of zeros vs GELL's ~11.6 B/nnz of index metadata.
 MAX_DIAGS = 128
 MIN_DIA_FILL = 0.20
-# the GELL kernel gathers x in 16384-value chunks (128 lanes x 128
-# sublanes); per-tile chunk footprint is the measured cost driver
+# column-footprint probe: x in 16384-value chunks, per 128-row tile
 _CHUNK = 16384
 _TILE_ROWS = 128
 
@@ -119,9 +113,9 @@ def suggest_layout(row, col, values, shape, *,
     foot_p = _chunk_footprint(rp, cp, n)
     stats["chunks_per_tile"] = float(foot)
     stats["chunks_per_tile_rcm"] = float(foot_p)
-    # a footprint cut of >= 25% moves real throughput (the kernel's
-    # gather-pass count is ~linear in the footprint, PERF_NOTES GELL
-    # model); below that the permutation only costs pack-time
+    # keep the permutation only for a footprint cut of >= 25% (the pack's
+    # gather passes grow with the footprint); below that it only costs
+    # pack time
     if foot_p < 0.75 * foot:
         return LayoutDecision("gell", perm, stats)
     return LayoutDecision("gell", None, stats)

@@ -1,14 +1,10 @@
-"""DIA (diagonal) sparse format — the TPU-native layout for banded operators.
+"""DIA (diagonal) sparse format — the layout for banded operators.
 
 The reference's Eigen CSC storage (matrix.hpp:39-44) makes SpMV a
-gather-per-entry; on TPU gathers through HBM are the bottleneck (measured
-~0.1-0.9 Gnnz/s via XLA gather). For banded matrices — the realistic
-large-sparse regime and the one the distributed halo exchange targets —
-storing the diagonals densely turns SpMV into pure shifted
-multiply-accumulates: zero gathers, unit-stride reads, one pass over the
-data. The Pallas kernel in ``ops/pallas/dia_spmv.py`` fuses the whole band
-into a single VPU pass (XLA alone leaves ~100 unfused shift/mul/add
-kernels inside solver loops).
+gather-per-entry. For banded matrices — the realistic large-sparse regime
+and the one the distributed halo exchange targets — storing the diagonals
+densely turns SpMV into pure shifted multiply-accumulates: zero gathers,
+unit-stride reads, one pass over the data (ops/dia.py).
 
 Convention (row-indexed): ``data[d, i] = A[i, i + offsets[d]]`` with zeros
 where the index leaves the matrix.
@@ -23,6 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.dtypes import canonical_dtype
+from ..ops.dia import (DEFAULT_IL_TILE, deinterleave_vec, dia_matmat_il,
+                       dia_matvec, dia_matvec_il, il_rows, interleave_dia_vals,
+                       interleave_vec)
 from .protocol import AbstractMatrix
 from .sparse import SparseCSR
 
@@ -88,20 +87,7 @@ class SparseDIA(AbstractMatrix):
 
     # --- compute ---
     def matvec(self, x):
-        from ..ops.pallas.dia_spmv import dia_matvec
         return dia_matvec(self.data, self.offsets, x)
-
-    def matvec_xla(self, x):
-        """Reference jnp path (used for parity tests and as fallback)."""
-        n = self.shape[0]
-        y = jnp.zeros_like(x)
-        for d, off in enumerate(self.offsets):
-            if off >= 0:
-                seg = jnp.pad(x[off:], (0, off))
-            else:
-                seg = jnp.pad(x[:off], (-off, 0))
-            y = y + self.data[d] * seg
-        return y
 
     def rmatvec(self, x):
         # A^H: diagonal at offset o becomes offset -o, shifted by o
@@ -169,14 +155,10 @@ class SparseDIA(AbstractMatrix):
 
     def interleaved(self, tile_s: int | None = None,
                     dtype=None) -> "InterleavedDIA":
-        """Convert to the lane-major interleaved layout — the fastest SpMV
-        path (ops/pallas/dia_spmv.py interleaved kernel: diagonal shifts
-        become sublane slices; measured 1.9x f32 / 2.6x bf16 over the
-        row-major kernel on v5e). ``dtype`` optionally re-types the stored
-        diagonals (e.g. bfloat16 halves HBM traffic; accumulation stays f32).
-        """
-        from ..ops.pallas.dia_spmv import (DEFAULT_IL_TILE, il_rows,
-                                           interleave_dia_vals)
+        """Convert to the lane-major interleaved layout (ops/dia.py); R is
+        rounded up to a multiple of ``tile_s``. ``dtype`` optionally
+        re-types the stored diagonals (bfloat16 halves the bytes read;
+        accumulation stays f32)."""
         ts = DEFAULT_IL_TILE if tile_s is None else tile_s
         n = self.shape[0]
         data = self.data if dtype is None else self.data.astype(dtype)
@@ -222,23 +204,17 @@ class InterleavedDIA(AbstractMatrix):
 
     # --- layout codec (protocol hooks used by the solver drivers) ---
     def encode_vec(self, x):
-        from ..ops.pallas.dia_spmv import interleave_vec
         return interleave_vec(x, self.R)
 
     def decode_vec(self, x_il):
-        from ..ops.pallas.dia_spmv import deinterleave_vec
         return deinterleave_vec(x_il, self.shape[0])
 
     # --- compute (interleaved domain) ---
     def matvec(self, x_il):
-        from ..ops.pallas.dia_spmv import dia_matvec_il
-        return dia_matvec_il(self.data_il, self.offsets, x_il,
-                             tile_s=self.tile_s)
+        return dia_matvec_il(self.data_il, self.offsets, x_il)
 
     def matmat(self, xs_il):
-        from ..ops.pallas.dia_spmv import dia_matmat_il
-        return dia_matmat_il(self.data_il, self.offsets, xs_il,
-                             tile_s=self.tile_s)
+        return dia_matmat_il(self.data_il, self.offsets, xs_il)
 
     def rmatvec(self, x_il):
         # correctness path: transpose via the natural layout (A^H shifts

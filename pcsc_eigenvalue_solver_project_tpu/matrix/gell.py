@@ -1,12 +1,11 @@
-"""``SparseGELL`` — the TPU execution format for general unstructured sparse.
+"""``SparseGELL`` — the packed gather-ELL format for unstructured sparse.
 
-This is the operator type behind the fast path for the reference's sparse
-``A * x`` (/root/reference/src/power_method/power_method.hpp:69, sparse arm
-of src/matrix/matrix.hpp:39-44). ``SparseCSR`` stays the authoritative
+An operator type for the reference's sparse ``A * x``
+(reference src/power_method/power_method.hpp:69, sparse arm of
+src/matrix/matrix.hpp:39-44). ``SparseCSR`` stays the authoritative
 ingest/storage format (exact reader parity); converting with
-``SparseCSR.to_gell()`` re-packs the nonzeros into the packed gather-ELL
-tile layout consumed by ``ops/pallas/gell_spmv.py`` (~85x the XLA
-gather+segment-sum SpMV on-chip for random 100K-row matrices).
+``SparseCSR.to_gell()`` re-packs the nonzeros into the tile layout of
+``ops/gell.py``.
 
 The packing is a host-side, one-time cost (like the reference's
 ``makeCompressed()``, file_matrix_reader.hpp:130); the resulting type is a
@@ -23,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..core.dtypes import canonical_dtype
-from ..ops.pallas.gell_spmv import GELLPack, gell_matvec, pack_gell
+from ..ops.gell import GELLPack, gell_matvec, pack_gell
 from .protocol import AbstractMatrix
 
 

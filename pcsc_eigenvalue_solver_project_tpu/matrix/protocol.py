@@ -1,4 +1,4 @@
-"""The matrix protocol — the TPU-native replacement for ``EigSol::Matrix``.
+"""The matrix protocol — the replacement for ``EigSol::Matrix``.
 
 The reference wraps Eigen matrices in a runtime type-erased ``Matrix`` class
 built on ``Box``/``BoxTyped`` (/root/reference/src/box/box.hpp:32-81,

@@ -1,4 +1,4 @@
-"""Sparse matrix types: CSR (authoritative) and ELL (TPU execution format).
+"""Sparse matrix types: CSR (authoritative) and ELL (padded rows).
 
 Replaces the sparse arm of ``EigSol::Matrix`` (``Matrix::Sparse<Scalar>`` =
 ``Eigen::SparseMatrix<S>``; /root/reference/src/matrix/matrix.hpp:39-44,
@@ -9,8 +9,8 @@ gather + segment-sum without dynamic shapes.
 
 ``SparseELL`` is the padded fixed-row-width layout: every row is padded to
 the maximum row nnz so the SpMV becomes one 2-D gather + row reduction —
-static shapes, no scatter. The fast TPU execution format for unstructured
-matrices is the packed gather-ELL in ``matrix/gell.py`` (``to_gell()``).
+static shapes, no scatter. The packed gather-ELL for unstructured
+matrices is in ``matrix/gell.py`` (``to_gell()``).
 """
 
 from __future__ import annotations
@@ -155,8 +155,7 @@ class SparseCSR(AbstractMatrix):
                          shape=self.shape)
 
     def to_gell(self, tile_rows: int | None = None):
-        """Convert to the packed gather-ELL TPU execution format
-        (``matrix/gell.py``) — the fast path for unstructured SpMV."""
+        """Convert to the packed gather-ELL format (``matrix/gell.py``)."""
         from .gell import SparseGELL
         return SparseGELL.from_csr(self, tile_rows=tile_rows)
 

@@ -1,9 +1,9 @@
 """Krylov linear solvers for shifted systems.
 
 The reference solves ``(A - shift*I) x = b`` with dense ``PartialPivLU`` or
-``SparseLU`` (/root/reference/src/matrix/solve_shifted.hpp:74-115). SparseLU
-has no TPU analogue — sequential factorisation does not map to the MXU and
-never crosses hosts well — so the sparse path here is an iterative Krylov
+``SparseLU`` (reference src/matrix/solve_shifted.hpp:74-115). A
+sequential sparse factorisation never crosses devices well, so the sparse
+path here is an iterative Krylov
 solve (BiCGStab) built on the SpMV protocol with Jacobi preconditioning;
 near-singular ``A - shift*I`` (the interesting regime for inverse
 iteration) is handled by capping iterations and accepting the direction,

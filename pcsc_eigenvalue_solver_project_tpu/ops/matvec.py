@@ -4,11 +4,11 @@ These are the hot ops of the whole framework — the reference's ``A * x``
 inside power iteration (power_method.hpp:69) is a sequential Eigen
 dense-GEMV / CSC-SpMV. Here:
 
-- dense matvec lowers to an XLA dot that runs on the MXU;
+- dense matvec lowers to an XLA dot at full f32 precision;
 - CSR SpMV uses gather + segment-sum (XLA scatter-add), with an ELL
   (padded row-width) variant whose gather/multiply/reduce fuses better;
-- the fast TPU path for unstructured sparsity is the packed gather-ELL
-  Pallas kernel in ``ops/pallas/gell_spmv.py`` (via ``SparseCSR.to_gell()``).
+- the packed gather-ELL evaluation lives in ``ops/gell.py`` (via
+  ``SparseCSR.to_gell()``).
 
 All functions are shape-static and jit-friendly.
 """
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 
 def dense_matvec(a: jax.Array, x: jax.Array) -> jax.Array:
-    """``a @ x`` with accumulation in the array dtype (MXU for f32/bf16)."""
+    """``a @ x`` with accumulation in the array dtype."""
     return jnp.matmul(a, x, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -1,16 +1,14 @@
 """Split-plane complex arithmetic — complex numbers as (2, ...) real arrays.
 
-The TPU backend here has NO complex dtype support at all (even c64
-multiplies raise Unimplemented), and Pallas never takes complex dtypes.
-The survey's mandate (complex support per ScalarConcept, types.hpp:28-30;
-the reference demo runs entirely in complex<double>) is met on TPU by
-carrying re/im planes in axis 0 of a real array:
+The split-complex operators (matrix/split_complex.py) carry complex
+numbers (ScalarConcept, types.hpp:28-30; the reference demo runs entirely
+in complex<double>) as re/im planes in axis 0 of a real array:
 
     vector  z  -> (2, n)    scalars -> (2,)    diagonals -> (2, k, n)
 
 Host conversion helpers plus the algebra the solver loops need (conjugating
 dot, norm, divide-by-scalar, relative-tolerance check). All ops are real
-jnp — they compile on any backend and inside Pallas kernels.
+jnp.
 """
 
 from __future__ import annotations
@@ -28,8 +26,7 @@ def to_planes(z) -> jax.Array:
 
 
 def from_planes(p) -> np.ndarray:
-    """Planes -> host complex array (use off-device; complex is host-only
-    on this TPU)."""
+    """Planes -> host complex array."""
     p = np.asarray(p)
     cdt = np.complex64 if p.dtype == np.float32 else np.complex128
     return (p[0] + 1j * p[1]).astype(cdt)

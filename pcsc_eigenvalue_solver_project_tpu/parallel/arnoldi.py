@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..core.precision import full_precision
 from ..core.dtypes import complex_dtype_of
 from ..core.options import SolverOptions
 from ..core.results import QRResult
@@ -86,6 +87,7 @@ def _distributed_arnoldi(A, x0: jax.Array, m: int,
     )(A.data, extra, x0)
 
 
+@full_precision
 def distributed_arnoldi_eigenvalues(A: PartitionedELL, mesh: Mesh,
                                     k: int = 6, *, m: int | None = None,
                                     opts: SolverOptions = SolverOptions(),
@@ -117,15 +119,12 @@ def distributed_arnoldi_eigenvalues(A: PartitionedELL, mesh: Mesh,
     V, H, brk = _distributed_arnoldi(A, x0_sharded, m, mesh, axis, exchange)
 
     ftype = jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
-    from ..solvers.qr_eigenvalues import _dense_qr_device
-    with _dense_qr_device():
-        Hm = jnp.asarray(np.asarray(H[:m, :m])).astype(
-            jnp.dtype(complex_dtype_of(H.dtype)))
-        qr = _qr_eigenvalues_accel(Hm, jnp.asarray(opts.max_iterations, jnp.int32),
-                                   jnp.asarray(opts.tolerance, ftype))
-        order = jnp.argsort(-jnp.abs(qr.eigenvalues))
-        return QRResult(eigenvalues=qr.eigenvalues[order][:k],
-                        iterations=qr.iterations, converged=qr.converged)
+    Hm = H[:m, :m].astype(jnp.dtype(complex_dtype_of(H.dtype)))
+    qr = _qr_eigenvalues_accel(Hm, jnp.asarray(opts.max_iterations, jnp.int32),
+                               jnp.asarray(opts.tolerance, ftype))
+    order = jnp.argsort(-jnp.abs(qr.eigenvalues))
+    return QRResult(eigenvalues=qr.eigenvalues[order][:k],
+                    iterations=qr.iterations, converged=qr.converged)
 
 
 # ---------------------------------------------------------------------------
@@ -190,6 +189,7 @@ def _distributed_arnoldi_extend(A, W0: jax.Array, l: int, m: int,
     )(A.data, extra, W0)
 
 
+@full_precision
 def distributed_krylov_schur_eigenvalues(A, mesh: Mesh, k: int = 6, *,
                                          m: int | None = None,
                                          restarts: int = 60,

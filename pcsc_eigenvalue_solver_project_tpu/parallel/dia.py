@@ -5,7 +5,7 @@ For banded operators the general ELL partition (parallel/sharded.py) pays
 for a gather per nnz; the DIA layout keeps the distributed SpMV fully
 gather-free: each shard holds its column-slice of the diagonal planes
 ``(k, rows_per_shard)``, exchanges only ``bandwidth`` halo entries of x
-with each neighbor over ICI (``ppermute``), and multiplies shifted window
+with each neighbor (``ppermute``), and multiplies shifted window
 slices — unit-stride reads end to end. The two halo permutes are
 independent of the local-band compute, so XLA overlaps them.
 
@@ -26,6 +26,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..core.options import SolverOptions
 from ..core.results import EigenResult
 from ..matrix.dia import SparseDIA
+from ..ops.dia import (DEFAULT_IL_TILE, LANES, dia_matvec_il_window, il_rows,
+                       il_window_halo)
 from ..solvers.power import power_iteration_loop
 from ..utils.prng import default_key, random_unit_vector
 from .mesh import ROW_AXIS
@@ -142,11 +144,10 @@ def _distributed_dia_power(A: PartitionedDIA, x0: jax.Array,
 
 # --------------------------------------------------------------------------
 # Interleaved distributed variant: each shard's diagonal block lives in the
-# lane-major layout (ops/pallas/dia_spmv.py), the iterate stays interleaved
-# ACROSS iterations, and the shard-boundary halo is exactly the seam-lane
-# columns of the local window — two ppermutes of (pr, 1) arrays per matvec,
-# zero layout conversions in the loop. Local compute rides the sublane-
-# shift Pallas kernel (2.4x the row-major kernel on v5e).
+# lane-major layout (ops/dia.py), the iterate stays interleaved ACROSS
+# iterations, and the shard-boundary halo is exactly the seam-lane columns
+# of the local window — two ppermutes of (pr, 1) arrays per matvec, zero
+# layout conversions in the loop.
 # --------------------------------------------------------------------------
 
 
@@ -163,12 +164,11 @@ class PartitionedILDIA:
 
     @property
     def R(self) -> int:
-        """Sublane count per shard."""
+        """Interleaved rows per shard."""
         return self.data_il.shape[1] // self.n_shards
 
     @property
     def shard_capacity(self) -> int:
-        from ..ops.pallas.dia_spmv import LANES
         return self.R * LANES
 
     @property
@@ -179,8 +179,6 @@ class PartitionedILDIA:
 def partition_dia_il(m: SparseDIA, mesh: Mesh, *, axis: str = ROW_AXIS,
                      tile_s: int | None = None, dtype=None) -> PartitionedILDIA:
     """Pad + interleave + place a banded operator over a 1-D mesh."""
-    from ..ops.pallas.dia_spmv import (DEFAULT_IL_TILE, LANES, il_rows,
-                                       il_window_halo)
     ts = DEFAULT_IL_TILE if tile_s is None else tile_s
     n = m.shape[0]
     p = mesh.shape[axis]
@@ -189,7 +187,7 @@ def partition_dia_il(m: SparseDIA, mesh: Mesh, *, axis: str = ROW_AXIS,
     pr = il_window_halo(m.offsets)
     if pr > R:
         raise ValueError(
-            f"partition_dia_il: halo ({pr}) exceeds shard sublanes ({R})")
+            f"partition_dia_il: halo ({pr}) exceeds rows per shard ({R})")
     cap = R * LANES
     dt = np.dtype(m.dtype) if dtype is None else np.dtype(dtype)
     data = np.zeros((k, p * cap), dt)
@@ -205,7 +203,6 @@ def partition_dia_il(m: SparseDIA, mesh: Mesh, *, axis: str = ROW_AXIS,
 def encode_vec_il_sharded(x: np.ndarray, A: PartitionedILDIA,
                           mesh: Mesh, *, axis: str = ROW_AXIS) -> jax.Array:
     """Host (n,) vector -> sharded (p*R, 128) interleaved iterate."""
-    from ..ops.pallas.dia_spmv import LANES
     p, R, cap = A.n_shards, A.R, A.shard_capacity
     xp = np.zeros(p * cap, x.dtype)
     xp[:A.n_orig] = x
@@ -215,7 +212,6 @@ def encode_vec_il_sharded(x: np.ndarray, A: PartitionedILDIA,
 
 def decode_vec_il_sharded(x_il, A: PartitionedILDIA) -> np.ndarray:
     """Sharded interleaved iterate -> host (n,) vector."""
-    from ..ops.pallas.dia_spmv import LANES
     p, R = A.n_shards, A.R
     xh = np.asarray(jax.device_get(x_il)).reshape(p, R, LANES)
     return xh.transpose(0, 2, 1).reshape(-1)[:A.n_orig]
@@ -242,12 +238,11 @@ def dia_il_halo_window(x_il_local, pr, *, axis: str = ROW_AXIS):
 def distributed_dia_il_matvec(A: PartitionedILDIA, x_il, mesh: Mesh, *,
                               axis: str = ROW_AXIS):
     """One distributed interleaved banded SpMV (jittable)."""
-    from ..ops.pallas.dia_spmv import dia_matvec_il_window, il_window_halo
     pr = il_window_halo(A.offsets)
 
     def local(data_il, x_local):
         w = dia_il_halo_window(x_local, pr, axis=axis)
-        return dia_matvec_il_window(data_il, A.offsets, w, tile_s=A.tile_s)
+        return dia_matvec_il_window(data_il, A.offsets, w)
 
     return jax.shard_map(
         local, mesh=mesh,
@@ -260,13 +255,12 @@ def distributed_dia_il_matvec(A: PartitionedILDIA, x_il, mesh: Mesh, *,
 def _distributed_dia_il_power(A: PartitionedILDIA, x0_il: jax.Array,
                               max_iterations: jax.Array, tol: jax.Array,
                               mesh: Mesh, axis: str) -> EigenResult:
-    from ..ops.pallas.dia_spmv import dia_matvec_il_window, il_window_halo
     pr = il_window_halo(A.offsets)
 
     def local_loop(data_il, x0_local):
         def matvec(x_local):
             w = dia_il_halo_window(x_local, pr, axis=axis)
-            return dia_matvec_il_window(data_il, A.offsets, w, tile_s=A.tile_s)
+            return dia_matvec_il_window(data_il, A.offsets, w)
 
         return power_iteration_loop(
             matvec,

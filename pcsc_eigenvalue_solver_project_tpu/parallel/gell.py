@@ -1,12 +1,12 @@
 """Row-partitioned packed gather-ELL — distributed general-sparse SpMV.
 
-The distributed counterpart of ``matrix/gell.py``: the TPU-native scaling
-of the reference's sparse ``A * x`` hot op (/root/reference/src/
-power_method/power_method.hpp:69) for *unstructured* matrices, where no
-halo window exists. Each shard owns a contiguous block of rows packed
-independently into the gather-ELL tile layout (all shards share the same
-static tile geometry); the iterate is all-gathered over ICI and each shard
-runs the single-chip Pallas kernel on its local pack.
+The distributed counterpart of ``matrix/gell.py``: the reference's
+sparse ``A * x`` hot op (reference src/power_method/
+power_method.hpp:69) for *unstructured* matrices, where no halo window
+exists. Each shard owns a contiguous block of rows packed independently
+into the gather-ELL tile layout (all shards share the same static tile
+geometry); the iterate is all-gathered and each shard evaluates its local
+pack (ops/gell.py).
 
 Layouts: the per-shard packs are stacked so the shard axis folds into the
 tile axis — ``seg/val``: (n_shards * tiles_per_shard, 128, 128) placed
@@ -26,8 +26,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..matrix.sparse import SparseCSR
-from ..ops.pallas.gell_spmv import (LANES, GELLPack, auto_tile_rows,
-                                    gell_matvec, pack_gell)
+from ..ops.gell import GELLPack, auto_tile_rows, gell_matvec, pack_gell
 from .mesh import ROW_AXIS
 
 
@@ -120,22 +119,18 @@ def partition_gell(m: SparseCSR, mesh: Mesh, *, axis: str = ROW_AXIS,
 
 def gell_local_matvec(seg, val, inv, sp_r, sp_c, sp_v, x_full, *,
                       rps: int, n_cols: int, tile_rows: int,
-                      scan_steps: int = 3, force: str | None = None):
+                      scan_steps: int = 3):
     """Local-block SpMV (runs inside shard_map; x_full is the gathered
     iterate). The local block IS a GELLPack over (rps, n_cols)."""
-    # max_chunks=0 disables column-panel pruning: the distributed path
-    # gathers the full x anyway and ships no per-tile chunk lists
     pack = GELLPack(seg_packed=seg, val=val, inv=inv,
                     sp_rows=sp_r[0], sp_cols=sp_c[0], sp_vals=sp_v[0],
-                    chunk_ids=jnp.zeros((seg.shape[0], 1, LANES),
-                                        jnp.int32),
                     shape=(rps, n_cols), tile_rows=tile_rows,
-                    scan_steps=scan_steps, is_complex=False, max_chunks=0)
-    return gell_matvec(pack, x_full, force=force)
+                    scan_steps=scan_steps, is_complex=False)
+    return gell_matvec(pack, x_full)
 
 
 def distributed_gell_matvec(A: PartitionedGELL, x, mesh: Mesh, *,
-                            axis: str = ROW_AXIS, force: str | None = None):
+                            axis: str = ROW_AXIS):
     """One distributed SpMV: global sharded x -> global sharded y (jittable).
 
     Exchange is all_gather — the correct choice for unstructured sparsity
@@ -146,7 +141,7 @@ def distributed_gell_matvec(A: PartitionedGELL, x, mesh: Mesh, *,
         x_full = jax.lax.all_gather(x_local, axis, tiled=True)
         return gell_local_matvec(seg, val, inv, sp_r, sp_c, sp_v, x_full,
                                  rps=rps, n_cols=n, tile_rows=A.tile_rows,
-                                 scan_steps=A.scan_steps, force=force)
+                                 scan_steps=A.scan_steps)
 
     return jax.shard_map(
         local, mesh=mesh,

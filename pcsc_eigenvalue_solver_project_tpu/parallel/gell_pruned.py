@@ -36,7 +36,7 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..matrix.sparse import SparseCSR
-from ..ops.pallas.gell_spmv import LANES, auto_tile_rows, pack_gell
+from ..ops.gell import LANES, auto_tile_rows, pack_gell
 from .gell import gell_local_matvec
 from .mesh import ROW_AXIS
 

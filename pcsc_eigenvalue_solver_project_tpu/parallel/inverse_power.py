@@ -2,9 +2,9 @@
 
 The inner Krylov solve (parallel/krylov.py) is nested inside the outer
 power loop (solvers/inverse_power.py:inverse_power_loop), both running on
-row shards inside ONE jitted ``shard_map``: SpMVs exchange halos over ICI,
+row shards inside ONE jitted ``shard_map``: SpMVs exchange halos,
 every scalar reduction is a ``psum``, convergence flags are replicated.
-This is the TPU answer to the reference's per-iteration SparseLU
+This replaces the reference's per-iteration SparseLU
 refactorisation (shifted_inverse_power_solver.hpp:51 ->
 solve_shifted.hpp:104-115) at scales where no dense factorisation is
 possible.
@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..core.precision import full_precision
 from ..core.options import ShiftedSolverOptions
 from ..core.results import EigenResult
 from ..solvers.inverse_power import inverse_power_loop
@@ -72,6 +73,7 @@ def _partitioned_diagonal(A: PartitionedELL) -> jax.Array:
     return jnp.sum(jnp.where(on_diag, A.data, 0), axis=1)
 
 
+@full_precision
 def distributed_shifted_inverse_power(A: PartitionedELL, mesh: Mesh,
                                       opts: ShiftedSolverOptions = ShiftedSolverOptions(),
                                       *, axis: str = ROW_AXIS,

@@ -4,9 +4,9 @@
 plain tree-vdots, which are shard-local inside ``shard_map``; this
 implementation takes ``vdot``/``norm`` as arguments so the distributed
 path can pass ``psum``-based versions (parallel/sharded.py) and the whole
-solve runs on row shards with scalars replicated across devices. This is
-the TPU-native replacement for the reference's SparseLU factorisation
-(solve_shifted.hpp:104-115): no factorisation ever crosses hosts — only
+solve runs on row shards with scalars replicated across devices. This
+replaces the reference's SparseLU factorisation (solve_shifted.hpp:104-115)
+in the distributed setting: no factorisation ever crosses devices — only
 SpMV halo exchanges and scalar psums (the SURVEY §2 'distributed shifted
 solve' row).
 """
@@ -16,7 +16,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..core.precision import full_precision
 
+
+@full_precision
 def bicgstab(matvec, b, *, vdot, norm, precond=None, tol=1e-12, atol=0.0,
              maxiter=None, x0=None):
     """Preconditioned BiCGStab for ``A x = b`` with injectable reductions.
@@ -83,6 +86,7 @@ def bicgstab(matvec, b, *, vdot, norm, precond=None, tol=1e-12, atol=0.0,
     return out["x"], norm(out["r"]), out["k"]
 
 
+@full_precision
 def gmres(matvec, b, *, vdot, norm, m=30, tol=1e-12, atol=0.0,
           max_restarts=None, precond=None, x0=None):
     """Restarted GMRES(m) with injectable reductions.

@@ -18,8 +18,10 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..core.precision import full_precision
 from ..core.options import SolverOptions
 from ..core.results import QRResult
+from ..ops.dia import dia_matvec_il_window, il_window_halo
 from ..solvers.lanczos import (_default_project, _ritz_from_tridiag,
                                lanczos_decomposition)
 from ..utils.prng import default_key, random_unit_vector
@@ -33,7 +35,6 @@ def _distributed_lanczos(A, x0: jax.Array, m: int, mesh: Mesh, axis: str,
                          exchange: str, reorth: bool):
     from .dia import (PartitionedDIA, PartitionedILDIA, dia_halo_window,
                       dia_il_halo_window, dia_window_matvec)
-    from ..ops.pallas.dia_spmv import dia_matvec_il_window, il_window_halo
     is_dia = isinstance(A, PartitionedDIA)
     is_il = isinstance(A, PartitionedILDIA)
     if is_il:
@@ -48,7 +49,7 @@ def _distributed_lanczos(A, x0: jax.Array, m: int, mesh: Mesh, axis: str,
         def matvec(x_local):
             if is_il:
                 w = dia_il_halo_window(x_local, pr, axis=axis)
-                return dia_matvec_il_window(data, A.offsets, w, tile_s=A.tile_s)
+                return dia_matvec_il_window(data, A.offsets, w)
             if is_dia:
                 w = dia_halo_window(x_local, A.halo, axis=axis)
                 return dia_window_matvec(data, A.offsets, w, A.halo)
@@ -80,6 +81,7 @@ def _distributed_lanczos(A, x0: jax.Array, m: int, mesh: Mesh, axis: str,
     )(A.data_il if is_il else A.data, extra, x0)
 
 
+@full_precision
 def distributed_lanczos_eigenvalues(A, mesh: Mesh, k: int = 6, *,
                                     m: int | None = None,
                                     opts: SolverOptions = SolverOptions(),

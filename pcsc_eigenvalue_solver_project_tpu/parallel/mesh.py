@@ -1,10 +1,10 @@
 """Device-mesh utilities.
 
 The reference is single-process, single-threaded (main.cpp:41 onward; no
-threads/MPI/CUDA anywhere — SURVEY.md §2). The TPU-native scaling axis is a
-1-D device mesh over which sparse operators are row-partitioned; the
-collectives ride ICI within a slice and DCN across slices (XLA inserts the
-transport — no hand-rolled communication layer, per SURVEY.md §5).
+threads/MPI/CUDA anywhere — SURVEY.md §2). The scaling axis here is a
+1-D device mesh over which sparse operators are row-partitioned; XLA
+inserts the collectives (NCCL between GPUs) — no hand-rolled
+communication layer, per SURVEY.md §5.
 
 ``initialize_distributed()`` wraps ``jax.distributed.initialize`` for
 multi-host runs; single-host multi-device (and the CPU fake mesh used in

@@ -1,10 +1,10 @@
 """Row-partitioned sparse operators and the distributed SpMV.
 
-This is the TPU-native answer to scaling the reference's ``A * x`` hot op
-(power_method.hpp:69) across chips/hosts (the reference has no parallelism
+This scales the reference's ``A * x`` hot op (power_method.hpp:69)
+across devices (the reference has no parallelism
 at all): the matrix rows are block-partitioned over a 1-D mesh in a padded
 ELL layout, the iterate ``x`` is row-sharded, and each SpMV gathers the
-needed ``x`` entries over ICI.
+needed ``x`` entries from the other shards.
 
 Two exchange strategies (SURVEY.md §2 parallelism table):
 

@@ -3,7 +3,7 @@ interleaved block SpMM across a row mesh.
 
 The BASELINE 1M-row 'distributed power iteration + QR (top-k)' config with
 block bandwidth economics: every sweep reads the sharded diagonals ONCE
-for the whole block (ops/pallas/dia_spmv.py block kernels), the
+for the whole block (ops/dia.py block SpMM), the
 shard-boundary halo is two (nvec, pr, 1) seam-lane ppermutes, and
 CholeskyQR2 orthonormalisation needs only psum'd (b, b) Gram matrices —
 no distributed QR factorisation anywhere. Host checks Ritz values of the
@@ -20,9 +20,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from ..core.precision import full_precision
 from ..core.options import SolverOptions
 from ..core.results import QRResult
 from ..core.tolerance import is_close_relative
+from ..ops.dia import LANES, dia_matmat_il_window, il_window_halo
 from ..utils.prng import default_key
 from .mesh import ROW_AXIS
 
@@ -49,14 +51,13 @@ def _cholqr2_rows_dist(Xf, axis):
 
 @partial(jax.jit, static_argnames=("mesh", "axis", "sweeps"))
 def _dist_subspace_chunk(A, Xf: jax.Array, sweeps: int, mesh: Mesh, axis: str):
-    from ..ops.pallas.dia_spmv import dia_matmat_il_window, il_window_halo
     from .dia import dia_il_halo_window
     pr = il_window_halo(A.offsets)
 
     def local(data_il, Xl):
         def apply_block(Xc):
             w = jax.vmap(lambda v: dia_il_halo_window(v, pr, axis=axis))(Xc)
-            return dia_matmat_il_window(data_il, A.offsets, w, tile_s=A.tile_s)
+            return dia_matmat_il_window(data_il, A.offsets, w)
 
         def body(_, Xc):
             return _cholqr2_rows_dist(apply_block(Xc), axis)
@@ -72,6 +73,7 @@ def _dist_subspace_chunk(A, Xf: jax.Array, sweeps: int, mesh: Mesh, axis: str):
     )(A.data_il, Xf)
 
 
+@full_precision
 def distributed_subspace_iteration(A, mesh: Mesh, k: int = 4, *,
                                    block: int | None = None,
                                    opts: SolverOptions = SolverOptions(),
@@ -79,7 +81,6 @@ def distributed_subspace_iteration(A, mesh: Mesh, k: int = 4, *,
                                    axis: str = ROW_AXIS, key=None) -> QRResult:
     """Top-``k`` eigenvalues (by magnitude) of a ``PartitionedILDIA``
     operator via distributed block iteration."""
-    from ..ops.pallas.dia_spmv import LANES
     n = A.n_orig
     if k < 1:
         raise ValueError("distributed_subspace_iteration: k must be >= 1")

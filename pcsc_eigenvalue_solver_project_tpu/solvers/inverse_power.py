@@ -6,7 +6,7 @@ shifted_inverse_power_solver.hpp:21-125): each iteration solves
 on A (:62); stopping, breakdown, and iteration-count semantics match the
 power method. The shift is FIXED (no Rayleigh-quotient-iteration update).
 
-TPU-native improvements over the reference:
+Improvements over the reference:
 
 - The reference re-runs a full LU factorisation EVERY outer iteration
   because its ``solve_shifted`` is stateless (solve_shifted.hpp:78,104-115
@@ -14,8 +14,8 @@ TPU-native improvements over the reference:
   is fixed, so here the dense path factorises ``A - shift*I`` ONCE outside
   the loop (``lu_factor``) and back-substitutes per iteration — identical
   numerics, O(n^3) -> O(n^2) per iteration.
-- Sparse path: no SparseLU exists on TPU; small systems densify (LU on the
-  MXU), large ones run Jacobi-preconditioned BiCGStab on the SpMV inside
+- Sparse path: small systems densify (one dense LU), large ones run
+  Jacobi-preconditioned BiCGStab or restarted GMRES on the SpMV inside
   the jitted outer loop (an inner Krylov loop nested in the outer power
   loop, both on device).
 """
@@ -28,6 +28,7 @@ import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
+from ..core.precision import full_precision
 from ..core.dtypes import check_scalar_type, real_dtype_of
 from ..core.options import ShiftedSolverOptions
 from ..core.results import EigenResult
@@ -155,8 +156,8 @@ def _inverse_power_splitc(M, shift_p: jax.Array, x0_p: jax.Array,
                           max_iterations: jax.Array, tol: jax.Array,
                           inner_tol: jax.Array, inner_maxiter: int,
                           inner_method: str = "bicgstab") -> EigenResult:
-    """Split-plane complex shifted inverse power: complex eigenproblems on
-    TPUs with no complex dtypes. Inner solve is the plane BiCGStab or
+    """Split-plane complex shifted inverse power on (2, n) re/im planes.
+    Inner solve is the plane BiCGStab or
     restarted plane GMRES (ops/split_krylov.py); outer loop mirrors the
     reference semantics."""
     from ..ops.split_complex import (splitc_is_close_relative, splitc_norm,
@@ -227,8 +228,7 @@ def _inverse_power_splitc_dense(pl: jax.Array, shift_p: jax.Array,
     """Dense split-plane path: ``(A - shift I)`` as the equivalent REAL
     2n x 2n block system [[R, -I_m], [I_m, R]] (R/I_m = re/im of the
     shifted matrix), LU-factorised ONCE — the split-plane analogue of the
-    reference's PartialPivLU path (solve_shifted.hpp:74-79), exact and
-    TPU-compilable with no complex dtype."""
+    reference's PartialPivLU path (solve_shifted.hpp:74-79)."""
     from ..ops.split_complex import (splitc_is_close_relative, splitc_norm,
                                      splitc_vdot)
     rdt = x0_p.dtype
@@ -282,6 +282,7 @@ def _inverse_power_splitc_dense(pl: jax.Array, shift_p: jax.Array,
                        converged=converged)
 
 
+@full_precision
 def shifted_inverse_power_split_complex(M, opts: ShiftedSolverOptions = ShiftedSolverOptions(),
                                         *, key=None, x0=None) -> EigenResult:
     """Eigenpair nearest ``opts.shift`` of a split-plane complex banded
@@ -325,12 +326,6 @@ def shifted_inverse_power_split_complex(M, opts: ShiftedSolverOptions = ShiftedS
             f"shifted_inverse_power_method: split-complex operators support "
             f"inner_method 'auto' | 'dense_lu' | 'bicgstab' | 'gmres', "
             f"got {method!r}")
-    # On accelerators, GMRES runs the fori-loop Arnoldi with the
-    # statically-unrolled masked-Householder least-squares solve
-    # (ops/split_krylov.py::splitc_gmres with ls='householder') — the
-    # round-2 remote-compiler wedge was isolated to the jnp.linalg.qr
-    # lowering, which that path never traces. splitc_gmres_unrolled is
-    # only the unroll='full' fallback.
     inner_maxiter = opts.inner_max_iterations or 4 * n
     r = _inverse_power_splitc(M, shift_p, M.encode_vec(x0), max_it, tol,
                               jnp.asarray(opts.inner_tolerance, ftype),
@@ -382,6 +377,7 @@ def _rqi_dense(a: jax.Array, shift0: jax.Array, x0: jax.Array,
                        converged=converged)
 
 
+@full_precision
 def rayleigh_quotient_iteration(M: AbstractMatrix,
                                 opts: ShiftedSolverOptions = ShiftedSolverOptions(),
                                 *, dtype=None, key=None, x0=None) -> EigenResult:
@@ -413,6 +409,7 @@ def rayleigh_quotient_iteration(M: AbstractMatrix,
                       jnp.asarray(opts.tolerance, ftype))
 
 
+@full_precision
 def shifted_inverse_power_method(M: AbstractMatrix,
                                  opts: ShiftedSolverOptions = ShiftedSolverOptions(),
                                  *, dtype=None, key=None, x0=None) -> EigenResult:

@@ -5,14 +5,14 @@ matrix is tridiagonal, so the recurrence keeps only three vectors and the
 small solve is an ``eigh`` of a real tridiagonal — O(m^2) instead of the
 shifted-QR O(m^3), with Ritz-residual bounds ``|beta_m * s_{m,i}|`` for
 free. The reference has no sparse-spectrum capability at all (its QR stack
-is dense-only, qr_eigenvalues.hpp:131-133); this is part of the TPU-native
+is dense-only, qr_eigenvalues.hpp:131-133); this is part of the
 superset mandated by the BASELINE large-sparse configs.
 
-TPU structure: the whole basis build is one jitted ``fori_loop`` whose only
+Structure: the whole basis build is one jitted ``fori_loop`` whose only
 O(n) ops are the operator's matvec and (optionally) a full
 reorthogonalisation pass written as TWO matmuls against the fixed-shape
-basis — rows beyond the current step are zero, so no masking is needed and
-both products run on the MXU. Reductions are injectable so the distributed
+basis — rows beyond the current step are zero, so no masking is needed.
+Reductions are injectable so the distributed
 build (parallel/lanczos.py) reuses this verbatim with psum'd versions.
 
 Hermitian input is the caller's contract (as with every Lanczos
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.precision import full_precision
 from ..core.dtypes import check_scalar_type, real_dtype_of
 from ..core.options import SolverOptions
 from ..core.results import QRResult
@@ -40,6 +41,7 @@ def _default_project(V, w):
     return jnp.tensordot(jnp.conj(V), w, axes=w.ndim)
 
 
+@full_precision
 def lanczos_decomposition(matvec, x0: jax.Array, m: int, *, vdot=jnp.vdot,
                           norm=jnp.linalg.norm, project=_default_project,
                           reorth: bool = True):
@@ -52,7 +54,7 @@ def lanczos_decomposition(matvec, x0: jax.Array, m: int, *, vdot=jnp.vdot,
     invariant (m if none). Fixed shapes; masked updates after breakdown.
 
     ``reorth=True`` adds one full classical Gram-Schmidt pass per step
-    (two MXU matmuls) — without it, finite-precision Lanczos loses
+    (two matmuls) — without it, finite-precision Lanczos loses
     orthogonality once Ritz values converge (ghost eigenvalues).
     """
     dtype = x0.dtype
@@ -128,6 +130,7 @@ def _ritz_from_tridiag(alpha: np.ndarray, beta: np.ndarray, k: int,
     return theta[idx], converged, S[:, idx]
 
 
+@full_precision
 def lanczos_extend(matvec, W_init: jax.Array, l: int, m: int, *,
                    vdot=jnp.vdot, norm=jnp.linalg.norm,
                    project=_default_project):
@@ -179,6 +182,7 @@ def _lanczos_extend_basis(M: AbstractMatrix, W_init: jax.Array, l: int, m: int):
     return lanczos_extend(M.matvec, W_init, l, m)
 
 
+@full_precision
 def lanczos_thick_restart(M: AbstractMatrix, k: int = 6, *,
                           m: int | None = None, restarts: int = 50,
                           opts: SolverOptions = SolverOptions(),
@@ -314,6 +318,7 @@ def lanczos_eigenvalues(M: AbstractMatrix, k: int = 6, *, m: int | None = None,
                          dtype=dtype, key=key, x0=x0, want_vectors=False)
 
 
+@full_precision
 def _lanczos_impl(M: AbstractMatrix, k: int, *, m, opts, which, reorth,
                   dtype, key, x0, want_vectors: bool):
     if which not in ("LM", "LA", "SA"):

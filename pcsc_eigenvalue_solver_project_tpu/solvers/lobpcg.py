@@ -3,10 +3,9 @@
 Locally Optimal Block Preconditioned Conjugate Gradient: the block
 counterpart of Lanczos that iterates k vectors simultaneously, so every
 step is ONE block SpMM — on a bandwidth-bound operator the diagonals are
-read once per k matvecs (the arithmetic-intensity argument behind the
-block kernels in ops/pallas/dia_spmv.py), and all the small dense algebra
-(Rayleigh-Ritz ``eigh`` of the 3k x 3k projection) runs on the MXU inside
-the same jit. Another superset over the reference, whose only spectrum
+read once per k matvecs (the block SpMM of ops/dia.py), and all the small
+dense algebra (Rayleigh-Ritz ``eigh`` of the 3k x 3k projection) runs
+inside the same jit. Another superset over the reference, whose only spectrum
 solver is the dense O(n^3) QR stack (qr_eigenvalues.hpp:131-133).
 
 Built on ``jax.experimental.sparse.linalg.lobpcg_standard`` (the
@@ -26,6 +25,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core.precision import full_precision
 from ..core.dtypes import check_scalar_type
 from ..core.options import SolverOptions
 from ..core.results import QRResult
@@ -37,7 +37,7 @@ def _block_apply(M: AbstractMatrix):
     """Column-block apply X (n, b) -> A X through the fastest kernel the
     operator kind has."""
     from ..matrix.dia import InterleavedDIA, SparseDIA
-    from ..ops.pallas.dia_spmv import dia_matmat
+    from ..ops.dia import dia_matmat
     if isinstance(M, InterleavedDIA):
         def apply(X):
             Xe = jax.vmap(M.encode_vec, in_axes=1)(X)        # (b, R, 128)
@@ -72,6 +72,7 @@ def _spectral_radius_overestimate(M, x0: jax.Array, iters: int):
     return 1.05 * lam + 1e-3
 
 
+@full_precision
 def lobpcg_eigenvalues(M: AbstractMatrix, k: int = 4, *,
                        opts: SolverOptions = SolverOptions(),
                        which: str = "LA", dtype=None, key=None,

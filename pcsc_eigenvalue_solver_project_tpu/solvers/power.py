@@ -10,7 +10,7 @@ tolerance.hpp:29-33), breakdown (``||Ax|| == 0``) exiting with
 ``converged=False`` (power_method.hpp:73-76), and ``iterations == k+1`` at
 the breaking iteration (power_method.hpp:87,95).
 
-TPU-native structure: the whole loop is one ``lax.while_loop`` under jit
+Structure: the whole loop is one ``lax.while_loop`` under jit
 with an on-device convergence flag in the carry — zero host round-trips per
 iteration. The reference performs TWO matvecs per iteration (``A*x`` at :69
 and ``x.dot(A*x)`` at :81); here the Rayleigh-quotient matvec ``A x_{k+1}``
@@ -117,7 +117,7 @@ def _power_loop_split(M, x0: jax.Array, max_iterations: jax.Array,
                       tol: jax.Array) -> EigenResult:
     """Split-plane complex power loop: x is (2, n) real planes, lambda a
     (2,) scalar. Same structure and stopping semantics as the complex-dtype
-    loop — runs on TPUs with no complex dtype support."""
+    loop."""
     from ..ops.split_complex import (splitc_is_close_relative, splitc_norm,
                                      splitc_vdot)
     rdt = x0.dtype
@@ -234,11 +234,10 @@ def power_method(M: AbstractMatrix, opts: SolverOptions = SolverOptions(), *,
 
 
 # ---------------------------------------------------------------------------
-# Double-single (f64-class accuracy on-chip) power iteration — round 5.
+# Double-single (f64-class accuracy from f32) power iteration.
 # The reference's scalar contract is double precision (types.hpp:28-30);
-# on TPU the f64 dtype is host-pinned (core/dtypes.py), so this path runs
-# the same loop in two-float compensated arithmetic (ops/ds64.py) at
-# ~2^-48 relative per op, entirely on the accelerator.
+# this path runs the same loop in two-float compensated arithmetic
+# (ops/ds64.py) at ~2^-48 relative per op.
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("offsets",))
@@ -299,8 +298,9 @@ def power_method_ds64(M, opts: SolverOptions = SolverOptions(), *,
     power loop (power_method.hpp:47-99, same stopping rule, breakdown
     semantics, and k+1 iteration count) in two-float compensated
     arithmetic (ops/ds64.py). The returned eigenvalue/eigenvector are
-    float64 (host-recombined hi+lo); accuracy vs a host f64 loop is
-    <= ~1e-12 relative (tests/test_ds64.py)."""
+    float64 (hi+lo recombined on the device when x64 is enabled, on the
+    host otherwise); accuracy vs a float64 loop is <= ~1e-12 relative
+    (tests/test_ds64.py)."""
     from ..matrix.dia import SparseDIA
     from ..ops.ds64 import ds_from_f64, ds_to_f64
     if not isinstance(M, SparseDIA):
@@ -319,6 +319,13 @@ def power_method_ds64(M, opts: SolverOptions = SolverOptions(), *,
     out = _power_loop_ds64(dh, dl, tuple(M.offsets), xh, xl,
                            jnp.asarray(opts.max_iterations, jnp.int32),
                            jnp.asarray(opts.tolerance, jnp.float32))
+    rxh, rxl, lh, ll, used, converged = out
+    if jax.config.jax_enable_x64:
+        f64 = jnp.float64
+        return EigenResult(
+            eigenvalue=lh.astype(f64) + ll.astype(f64),
+            eigenvector=rxh.astype(f64) + rxl.astype(f64),
+            iterations=used, converged=converged)
     rxh, rxl, lh, ll, used, converged = jax.device_get(out)
     return EigenResult(
         eigenvalue=np.float64(lh) + np.float64(ll),

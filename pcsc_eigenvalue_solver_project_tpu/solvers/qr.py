@@ -6,11 +6,11 @@ complex phase-correct sign, skip rules for already-eliminated columns, and
 accumulation of the full m x m unitary Q. Empty input raises (:38-40); the
 wrapper is dense-only (:110-112) and returns ``(Q, R)``.
 
-Same TPU-native structure as the Hessenberg reduction: ``lax.fori_loop``
-over columns with full-size masked reflectors so every update is an MXU
-outer product at fixed shape. ``jnp.linalg.qr`` (XLA's blocked QR) is used
-by the accelerated eigenvalue path; this routine exists for exact
-reference-behavior parity and for the (Q, R) public API.
+Same structure as the Hessenberg reduction: ``lax.fori_loop`` over
+columns with full-size masked reflectors, every update a fixed-shape outer
+product and every matrix-vector product at ``HIGHEST`` precision. This
+routine exists for exact reference-behavior parity (the parity-mode QR
+iteration) and for the (Q, R) public API.
 """
 
 from __future__ import annotations
@@ -20,6 +20,8 @@ import jax.numpy as jnp
 
 from ..core.dtypes import check_scalar_type, real_dtype_of
 from ..matrix.protocol import AbstractMatrix
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 @jax.jit
@@ -51,11 +53,11 @@ def qr_decompose_dense(a: jax.Array):
         v = v / jnp.where(degenerate, jnp.ones((), rdt), vnorm).astype(dtype)
 
         # R(k:, k:) -= 2 v (v^H R)  (qr_decompose.hpp:77-79)
-        w = jnp.conj(v) @ R
+        w = jnp.matmul(jnp.conj(v), R, precision=_HI)
         w = jnp.where(col_idx >= k, w, jnp.zeros((), dtype))
         R1 = R - 2.0 * jnp.outer(v, w)
         # Q(:, k:) -= 2 (Q v) v^H  (qr_decompose.hpp:82-84)
-        u = Q @ v
+        u = jnp.matmul(Q, v, precision=_HI)
         Q1 = Q - 2.0 * jnp.outer(u, jnp.conj(v))
 
         skip = jnp.logical_or(tail_zero, degenerate)
@@ -67,30 +69,9 @@ def qr_decompose_dense(a: jax.Array):
 
 
 def qr_decompose(M: AbstractMatrix, *, dtype=None):
-    """Wrapper with the reference's dense-only and scalar-type guards.
-
-    TPU-resident for square f32/c64 inputs via the Pallas kernel
-    (ops/pallas/qr_kernels.py); rectangular, f64/c128, and CPU runs keep
-    the XLA column loop."""
-    from .qr_eigenvalues import _dense_qr_device, _use_pallas_qr
+    """Wrapper with the reference's dense-only and scalar-type guards."""
     if not M.is_dense:
         raise ValueError("qr_decompose: only dense matrices are supported")
     if dtype is not None:
         check_scalar_type(M.dtype, dtype, "qr_decompose")
-    import numpy as np
-    a = np.asarray(M.as_dense())
-    m, n = a.shape
-    if (jax.default_backend() != "cpu" and m == n and m > 0
-            and _use_pallas_qr(m, M.dtype)):
-        from ..ops.pallas.qr_kernels import qr_decompose_planes
-        if np.iscomplexobj(a):
-            planes = np.stack([a.real, a.imag]).astype(np.float32)
-            R, Q = qr_decompose_planes(jnp.asarray(planes), m)
-            R, Q = np.asarray(R), np.asarray(Q)
-            with _dense_qr_device():
-                return (jnp.asarray((Q[0] + 1j * Q[1]).astype(np.complex64)),
-                        jnp.asarray((R[0] + 1j * R[1]).astype(np.complex64)))
-        R, Q = qr_decompose_planes(jnp.asarray(a.astype(np.float32)[None]), m)
-        return Q[0], R[0]
-    with _dense_qr_device():
-        return qr_decompose_dense(jnp.asarray(a))
+    return qr_decompose_dense(jnp.asarray(M.as_dense()))

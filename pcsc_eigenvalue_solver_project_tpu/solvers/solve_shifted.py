@@ -7,10 +7,9 @@ dense path forms ``M = A - shift*I`` and LU-solves (PartialPivLU,
 non-square (ValueError, :67-69/:88-90), size mismatch (ValueError,
 :70-72/:91-93).
 
-TPU-native mapping: the dense LU runs as XLA's blocked LU on the MXU. For
-sparse operators there is no SparseLU on TPU; ``method="auto"`` densifies
-small systems (dense LU on the MXU beats any sparse factorisation at these
-sizes) and uses Jacobi-preconditioned BiCGStab on the SpMV for large ones.
+Mapping: the dense LU runs as XLA's LU. For sparse operators
+``method="auto"`` densifies small systems (one dense LU) and uses
+Jacobi-preconditioned BiCGStab on the SpMV for large ones.
 """
 
 from __future__ import annotations
@@ -20,12 +19,13 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
+from ..core.precision import full_precision
 from ..core.dtypes import check_scalar_type
 from ..matrix.dense import DenseMatrix
 from ..matrix.protocol import AbstractMatrix
 from ..ops.krylov import solve_shifted_bicgstab
 
-# Below this size a sparse system is densified and LU-solved on the MXU.
+# Below this size a sparse system is densified and LU-solved.
 DENSE_FALLBACK_MAX_N = 2048
 
 
@@ -43,6 +43,7 @@ def _sparse_solve_shifted(M: AbstractMatrix, shift: jax.Array, b: jax.Array,
                                   tol=tol, maxiter=maxiter)
 
 
+@full_precision
 def solve_shifted(M: AbstractMatrix, shift, b, *, dtype=None,
                   method: str = "auto", tol: float = 1e-12,
                   maxiter: int | None = None) -> jax.Array:

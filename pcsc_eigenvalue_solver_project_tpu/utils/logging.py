@@ -3,7 +3,7 @@
 The reference's observability contract is the ``iterations``/``converged``
 result fields plus demo ``std::cout`` (SURVEY.md §5). This module adds the
 framework-level layer on top: a standard-library logger namespaced
-``eigsol_tpu`` and a JSON-line event emitter used by bench/parity tooling.
+``eigsol`` and a JSON-line event emitter used by bench/parity tooling.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import logging
 import sys
 import time
 
-LOGGER_NAME = "eigsol_tpu"
+LOGGER_NAME = "eigsol"
 
 
 def get_logger(name: str | None = None) -> logging.Logger:

@@ -1,6 +1,6 @@
 """Automatic layout selection (matrix/auto.py) — the runtime-dispatch
 spirit of the reference (power_method.hpp:141-147) at the layer where it
-matters on TPU: between sparse layouts 100x apart in throughput."""
+matters here: between sparse layouts."""
 
 import numpy as np
 import jax.numpy as jnp

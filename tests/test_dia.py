@@ -1,8 +1,8 @@
-"""SparseDIA format + Pallas DIA SpMV kernel tests.
+"""SparseDIA format + banded SpMV (ops/dia.py) tests.
 
-The kernel runs in interpreter mode on CPU (same program, no Mosaic), so
-its logic — window loads, lane rolls, seam blends, padding — is covered in
-CI; the real-chip numbers come from bench.py.
+Every layout — natural, interleaved, block, pre-built halo window, bf16
+values — is checked against a float64 NumPy evaluation of the band
+(``_band_oracle``).
 """
 
 import jax
@@ -13,7 +13,34 @@ import pytest
 from pcsc_eigenvalue_solver_project_tpu import SolverOptions, SparseCSR, power_method
 from pcsc_eigenvalue_solver_project_tpu.matrix.dia import SparseDIA
 from pcsc_eigenvalue_solver_project_tpu.models.generators import banded_full, laplacian_1d
-from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import dia_matvec
+from pcsc_eigenvalue_solver_project_tpu.ops.dia import (
+    deinterleave_vec, dia_matmat_il, dia_matmat_il_window, dia_matvec,
+    dia_matvec_il, dia_matvec_il_window, il_rows, il_window_halo,
+    interleave_dia_vals, interleave_vec)
+
+
+def _band_oracle(vals, offsets, x):
+    """y[i] = sum_d vals[d, i] * x[i + off_d] in float64 NumPy."""
+    vals = np.asarray(vals, np.float64)
+    x = np.asarray(x, np.float64)
+    n = x.shape[-1]
+    y = np.zeros(x.shape)
+    for d, off in enumerate(offsets):
+        lo, hi = max(0, -off), min(n, n - off)
+        y[..., lo:hi] += vals[d, lo:hi] * x[..., lo + off:hi + off]
+    return y
+
+
+def _band_vals(n, offsets, seed, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    vals = np.zeros((len(offsets), n), dtype)
+    for d, off in enumerate(offsets):
+        vals[d] = rng.random(n)
+        if off > 0:
+            vals[d, n - off:] = 0
+        elif off < 0:
+            vals[d, :-off] = 0
+    return vals
 
 
 class TestSparseDIAFormat:
@@ -69,100 +96,101 @@ class TestSparseDIAFormat:
         assert np.abs(np.triu(d, 4)).max() == 0
 
 
-class TestPallasKernelInterpret:
-    """Kernel logic via interpret mode (CPU)."""
+class TestPlainBandedSpMV:
+    """Natural-layout banded SpMV against the float64 oracle."""
 
     @pytest.mark.parametrize("n,offsets", [
         (16384, (-1, 0, 1)),
-        (16500, (-16, -3, 0, 7, 16)),        # non-multiple n -> padding path
-        (20000, tuple(range(-16, 17))),      # full band, two tiles + remainder
-        (16384, (-130, 0, 129)),             # |off| > 128: multi-row shifts
+        (16500, (-16, -3, 0, 7, 16)),        # non-multiple n
+        (20000, tuple(range(-16, 17))),      # full band
+        (16384, (-130, 0, 129)),             # |off| > 128
     ])
-    def test_matches_xla(self, n, offsets):
-        rng = np.random.default_rng(42)
-        k = len(offsets)
-        vals = np.zeros((k, n), np.float32)
-        for d, off in enumerate(offsets):
-            vals[d] = rng.random(n)
-            if off > 0:
-                vals[d, n - off:] = 0
-            elif off < 0:
-                vals[d, :-off] = 0
-        vals = jnp.asarray(vals)
-        x = jnp.asarray(rng.random(n), jnp.float32)
-        y_ref = dia_matvec(vals, offsets, x, force="xla")
-        y_ker = dia_matvec(vals, offsets, x, force="interpret")
-        np.testing.assert_allclose(np.asarray(y_ker), np.asarray(y_ref),
+    def test_matches_dense_oracle(self, n, offsets):
+        vals = _band_vals(n, offsets, 42)
+        x = np.random.default_rng(42).random(n).astype(np.float32)
+        y = dia_matvec(jnp.asarray(vals), offsets, jnp.asarray(x))
+        np.testing.assert_allclose(np.asarray(y),
+                                   _band_oracle(vals, offsets, x),
                                    rtol=1e-5, atol=1e-5)
 
-    def test_auto_dispatch_on_cpu_uses_xla(self):
-        # on CPU the auto path must not attempt Mosaic compilation
-        dia = banded_full(20000, bandwidth=2, seed=0)
-        x = jnp.ones((20000,), jnp.float32)
-        y = dia.matvec(x)  # would raise if pallas were attempted on CPU
-        assert np.isfinite(np.asarray(y)).all()
+    def test_bf16_values_accumulate_in_f32(self):
+        offsets = (-2, -1, 0, 1, 2)
+        vals = _band_vals(20000, offsets, 0)
+        x = np.ones(20000, np.float32)
+        y = dia_matvec(jnp.asarray(vals, jnp.bfloat16), offsets, jnp.asarray(x))
+        assert y.dtype == jnp.float32
+        ref = _band_oracle(np.asarray(jnp.asarray(vals, jnp.bfloat16),
+                                      np.float32), offsets, x)
+        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-6, atol=1e-6)
 
 
 class TestInterleavedDIA:
-    """Lane-major interleaved layout: kernel logic (interpret mode),
-    layout codec roundtrip, operator-protocol integration."""
+    """Lane-major interleaved layout against the float64 oracle, layout
+    codec roundtrip, operator-protocol integration."""
 
     @pytest.mark.parametrize("n,offsets,tile_s", [
-        (20000, tuple(range(-16, 17)), 64),   # full band, default-ish tile
+        (20000, tuple(range(-16, 17)), 64),   # full band
         (16500, (-16, -3, 0, 7, 16), 64),     # non-multiple n
-        (20000, (-100, -3, 0, 5, 99), 64),    # bandwidth > sublane groups
-        (9000, (-1, 0, 1), 8),                # minimal tile
+        (20000, (-100, -3, 0, 5, 99), 64),    # wide halo
+        (9000, (-1, 0, 1), 8),                # minimal row alignment
     ])
-    def test_il_matvec_matches_xla(self, n, offsets, tile_s):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import (
-            deinterleave_vec, dia_matvec_il, il_rows, interleave_dia_vals,
-            interleave_vec)
-        rng = np.random.default_rng(7)
-        k = len(offsets)
-        vals = np.zeros((k, n), np.float32)
-        for d, off in enumerate(offsets):
-            vals[d] = rng.random(n)
-            if off > 0:
-                vals[d, n - off:] = 0
-            elif off < 0:
-                vals[d, :-off] = 0
-        vals = jnp.asarray(vals)
-        x = jnp.asarray(rng.random(n), jnp.float32)
-        y_ref = dia_matvec(vals, offsets, x, force="xla")
+    def test_il_matvec_matches_oracle(self, n, offsets, tile_s):
+        vals = _band_vals(n, offsets, 7)
+        x = np.random.default_rng(7).random(n).astype(np.float32)
         R = il_rows(n, tile_s)
-        y_il = dia_matvec_il(interleave_dia_vals(vals, R), offsets,
-                             interleave_vec(x, R), tile_s=tile_s,
-                             force="interpret")
+        y_il = dia_matvec_il(interleave_dia_vals(jnp.asarray(vals), R), offsets,
+                             interleave_vec(jnp.asarray(x), R))
         np.testing.assert_allclose(np.asarray(deinterleave_vec(y_il, n)),
-                                   np.asarray(y_ref), rtol=1e-5, atol=1e-5)
+                                   _band_oracle(vals, offsets, x),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("offsets", [(-3, 0, 3), (-9, -1, 0, 4, 9)])
+    def test_prebuilt_window_halo_values(self, offsets):
+        """A caller-built window's halo rows may carry any values (the
+        neighbour shard's entries): y[s, l] = sum_d v[d, s, l] *
+        w[pr + s + off_d, l]."""
+        rng = np.random.default_rng(11)
+        R = 64
+        pr = il_window_halo(offsets)
+        v = rng.standard_normal((len(offsets), R, 128)).astype(np.float32)
+        w = rng.standard_normal((R + 2 * pr, 128)).astype(np.float32)
+        ref = np.zeros((R, 128))
+        for d, off in enumerate(offsets):
+            ref += v[d].astype(np.float64) * w[pr + off:pr + off + R]
+        y = dia_matvec_il_window(jnp.asarray(v), offsets, jnp.asarray(w))
+        np.testing.assert_allclose(np.asarray(y), ref, rtol=1e-5, atol=1e-5)
+        ys = dia_matmat_il_window(jnp.asarray(v), offsets,
+                                  jnp.stack([jnp.asarray(w)] * 3))
+        for j in range(3):
+            np.testing.assert_allclose(np.asarray(ys[j]), ref, rtol=1e-5,
+                                       atol=1e-5)
+
+    def test_window_shape_checked(self):
+        with pytest.raises(ValueError, match="window"):
+            dia_matvec_il_window(jnp.zeros((3, 64, 128)), (-1, 0, 1),
+                                 jnp.zeros((64, 128)))
 
     def test_codec_roundtrip(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import (
-            deinterleave_vec, il_rows, interleave_vec)
         x = jnp.asarray(np.random.default_rng(0).random(12345), jnp.float32)
         R = il_rows(12345)
         np.testing.assert_array_equal(
             np.asarray(deinterleave_vec(interleave_vec(x, R), 12345)),
             np.asarray(x))
 
-    def test_block_matmat_matches_per_vector(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import (
-            deinterleave_vec, dia_matmat_il, il_rows, interleave_dia_vals,
-            interleave_vec)
-        n, offsets = 17000, (-5, 0, 5)
+    def test_block_matmat_matches_oracle(self):
+        n = 17000
         dia = banded_full(n, bandwidth=5, seed=2)
         rng = np.random.default_rng(3)
         R = il_rows(n, 64)
-        vil = interleave_dia_vals(dia.data.astype(jnp.float32), R)
+        vals = np.asarray(dia.data.astype(jnp.float32))
+        vil = interleave_dia_vals(jnp.asarray(vals), R)
         xs = rng.standard_normal((4, n)).astype(np.float32)
         xs_il = jnp.stack([interleave_vec(jnp.asarray(v), R) for v in xs])
-        ys = dia_matmat_il(vil, dia.offsets, xs_il, tile_s=64,
-                           force="interpret")
+        ys = dia_matmat_il(vil, dia.offsets, xs_il)
+        ref = _band_oracle(vals, dia.offsets, xs)
         for j in range(4):
-            y_ref = dia_matvec(dia.data.astype(jnp.float32), dia.offsets,
-                               jnp.asarray(xs[j]), force="xla")
             np.testing.assert_allclose(
-                np.asarray(deinterleave_vec(ys[j], n)), np.asarray(y_ref),
+                np.asarray(deinterleave_vec(ys[j], n)), ref[j],
                 rtol=1e-4, atol=1e-4)
 
     def test_operator_protocol_and_power_method(self, key):

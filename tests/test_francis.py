@@ -1,7 +1,7 @@
 """Real-arithmetic (Francis double-shift) accelerated QR tests.
 
-This is the path real matrices take in accelerated mode — mandatory on the
-TPU backend, which has no complex dtypes. Conjugate pairs come out of
+This is the path real matrices take in accelerated mode. Conjugate pairs
+come out of
 analytic 2x2 deflation; the bulge must start at the top of the trailing
 unreduced block (the `lo` scan) or shifts die at interior negligible
 subdiagonals.

@@ -1,20 +1,26 @@
-"""Packed gather-ELL (general unstructured sparse) kernel + matrix tests.
+"""Packed gather-ELL (general unstructured sparse) pack + matrix tests.
 
-The Pallas kernel runs in interpreter mode on CPU (same program, no
-Mosaic); the "xla" force path is the pure-jnp evaluation of the identical
-pack. Real-chip throughput comes from bench.py (spmv_general metric).
-Reference hot op: /root/reference/src/power_method/power_method.hpp:69
-with an arbitrary Eigen::SparseMatrix.
+The pack is evaluated eagerly and under ``jax.jit`` (the pack is a pytree
+with static geometry) against a float64 dense oracle. Reference hot op:
+reference src/power_method/power_method.hpp:69 with an arbitrary
+Eigen::SparseMatrix.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from pcsc_eigenvalue_solver_project_tpu import (SolverOptions, SparseCSR,
                                                 SparseGELL, power_method)
-from pcsc_eigenvalue_solver_project_tpu.ops.pallas.gell_spmv import (
+from pcsc_eigenvalue_solver_project_tpu.ops.gell import (
     auto_tile_rows, gell_matvec, pack_gell)
+
+
+def _matvec(pack, x, mode):
+    if mode == "jit":
+        return jax.jit(gell_matvec)(pack, x)
+    return gell_matvec(pack, x)
 
 
 def _random_coo(rng, n_rows, n_cols, nnz, dtype):
@@ -36,13 +42,10 @@ def _dense_of(r, c, v, shape):
 
 
 class TestPackAndMatvec:
-    @pytest.mark.parametrize("force", ["xla", "interpret"])
+    @pytest.mark.parametrize("mode", ["eager", "jit"])
     @pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64,
                                        np.complex128])
-    def test_matches_dense_random(self, force, dtype):
-        if force == "interpret" and np.dtype(dtype) in (np.dtype(np.float64),
-                                                        np.dtype(np.complex128)):
-            pytest.skip("kernel path is f32/c64; wide dtypes use the XLA path")
+    def test_matches_dense_random(self, mode, dtype):
         rng = np.random.default_rng(0)
         r, c, v = _random_coo(rng, 500, 700, 9000, dtype)
         pack = pack_gell(r, c, v, (500, 700), tile_rows=128)
@@ -54,13 +57,13 @@ class TestPackAndMatvec:
         ref = _dense_of(r, c, v, (500, 700)) @ x.astype(np.complex128 if
                                                         np.dtype(dtype).kind == "c"
                                                         else np.float64)
-        y = np.asarray(gell_matvec(pack, jnp.asarray(x), force=force))
+        y = np.asarray(_matvec(pack, jnp.asarray(x), mode))
         rel = np.max(np.abs(y - ref)) / np.max(np.abs(ref))
         tol = 1e-5 if np.dtype(dtype).itemsize <= 8 else 1e-12
         assert rel < tol
 
-    @pytest.mark.parametrize("force", ["xla", "interpret"])
-    def test_duplicates_sum(self, force):
+    @pytest.mark.parametrize("mode", ["eager", "jit"])
+    def test_duplicates_sum(self, mode):
         # duplicate (row, col) entries become scan-run members and sum
         r = np.array([3, 3, 3, 3, 7, 7])
         c = np.array([5, 5, 5, 5, 5, 5])
@@ -68,12 +71,12 @@ class TestPackAndMatvec:
         pack = pack_gell(r, c, v, (10, 10), tile_rows=128)
         x = np.zeros(10, np.float32)
         x[5] = 2.0
-        y = np.asarray(gell_matvec(pack, jnp.asarray(x), force=force))
+        y = np.asarray(_matvec(pack, jnp.asarray(x), mode))
         np.testing.assert_allclose(y[3], 20.0, rtol=1e-6)
         np.testing.assert_allclose(y[7], 60.0, rtol=1e-6)
 
-    @pytest.mark.parametrize("force", ["xla", "interpret"])
-    def test_spill_paths(self, force):
+    @pytest.mark.parametrize("mode", ["eager", "jit"])
+    def test_spill_paths(self, mode):
         # tiny dup-dense matrix: bucket overflow (slot >= 128) and deep runs
         # (rank >= 8) both exercise the COO spill tail
         rng = np.random.default_rng(1)
@@ -82,17 +85,17 @@ class TestPackAndMatvec:
         assert pack.n_spill > 0
         x = rng.standard_normal(8).astype(np.float32)
         ref = _dense_of(r, c, v, (8, 8)) @ x.astype(np.float64)
-        y = np.asarray(gell_matvec(pack, jnp.asarray(x), force=force))
+        y = np.asarray(_matvec(pack, jnp.asarray(x), mode))
         assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) < 2e-5
 
     def test_empty_matrix(self):
         pack = pack_gell(np.zeros(0, int), np.zeros(0, int),
                          np.zeros(0, np.float32), (64, 64))
-        y = gell_matvec(pack, jnp.ones(64, jnp.float32), force="xla")
+        y = gell_matvec(pack, jnp.ones(64, jnp.float32))
         np.testing.assert_array_equal(np.asarray(y), np.zeros(64))
 
     def test_multi_tile_and_wide_columns(self):
-        # several row tiles and a column span needing multiple gather chunks
+        # several row tiles and a column span of many 128-wide segments
         rng = np.random.default_rng(2)
         n_rows, n_cols = 700, 40_000   # 40K cols -> 313 segments -> 3 chunks
         r, c, v = _random_coo(rng, n_rows, n_cols, 15_000, np.float32)
@@ -100,9 +103,20 @@ class TestPackAndMatvec:
         assert pack.n_chunks == 3 and pack.n_tiles == 3
         x = rng.standard_normal(n_cols).astype(np.float32)
         ref = _dense_of(r, c, v, (n_rows, n_cols)) @ x.astype(np.float64)
-        for force in ("xla", "interpret"):
-            y = np.asarray(gell_matvec(pack, jnp.asarray(x), force=force))
+        for mode in ("eager", "jit"):
+            y = np.asarray(_matvec(pack, jnp.asarray(x), mode))
             assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) < 1e-5
+
+    def test_bf16_values(self):
+        rng = np.random.default_rng(5)
+        r, c, v = _random_coo(rng, 400, 400, 6000, np.float32)
+        pack = pack_gell(r, c, v, (400, 400)).with_values_dtype(jnp.bfloat16)
+        x = rng.standard_normal(400).astype(np.float32)
+        v16 = np.asarray(jnp.asarray(v, jnp.bfloat16), np.float64)
+        ref = _dense_of(r, c, v16, (400, 400)) @ x.astype(np.float64)
+        y = np.asarray(gell_matvec(pack, jnp.asarray(x)))
+        assert y.dtype == np.float32
+        assert np.max(np.abs(y - ref)) / np.max(np.abs(ref)) < 1e-5
 
     def test_auto_tile_rows(self):
         assert auto_tile_rows(100_000, 33 * 100_000) == 384

@@ -4,7 +4,7 @@ Mirrors /root/reference/test/shifted_inverse_power_method_test.cpp: the
 shift selects the nearest eigenvalue (sigma=1.9 -> 2 and sigma=4.9 -> 5 on
 diag(2,5); sparse diag(1,3,10) with sigma=2.9 -> 3), error paths, and the
 tiny-maxIterations iteration-count contract. Adds the Krylov
-(BiCGStab) inner-solve path the TPU build uses where the reference used
+(BiCGStab) inner-solve path this library uses where the reference used
 SparseLU.
 """
 

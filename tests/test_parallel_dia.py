@@ -123,5 +123,5 @@ class TestPartitionedILDIA:
         from pcsc_eigenvalue_solver_project_tpu.parallel.dia import partition_dia_il
         dia = banded_full(600, bandwidth=20, dtype=np.float32, seed=0)
         with pytest.raises(ValueError, match="halo"):
-            # 8 shards x tile 8 -> R = 8 sublanes/shard < pr = 24
+            # 8 shards x alignment 8 -> R = 8 rows/shard < pr = 24
             partition_dia_il(dia, mesh, tile_s=8)

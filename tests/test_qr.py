@@ -208,22 +208,17 @@ class TestQREigenvaluesAccelerated:
         assert spectrum_distance(np.asarray(r.eigenvalues), [1, 2, 3]) < 1e-12
 
 
-class TestParityFallbackWarning:
-    def test_parity_complex_beyond_vmem_cap_warns(self, monkeypatch):
-        """Parity mode beyond the in-VMEM kernel caps must warn about the
-        host-CPU fallback, never route there silently (VERDICT r3 task 8;
-        the reference iteration, qr_eigenvalues.hpp:40-108, has no size
-        cliff). The accelerator predicate is monkeypatched so the
-        dispatch condition is exercised on the CPU test mesh."""
-        from pcsc_eigenvalue_solver_project_tpu.solvers import (
-            qr_eigenvalues as qe)
-        monkeypatch.setattr(qe, "_f32_class_on_accel",
-                            lambda dtype, backend=None: True)
-        n = qe._PALLAS_QR_PARITY_MAX_N[2] + 1
+class TestParityNoSizeCliff:
+    def test_parity_complex_beyond_old_cap_runs_on_device(self, recwarn):
+        """Parity mode has no size cliff and no host fallback at any size
+        (the reference iteration, qr_eigenvalues.hpp:40-108, has none)."""
+        n = 385
         a = (np.triu(np.ones((n, n))) + 1j * np.eye(n)).astype(np.complex64)
-        with pytest.warns(UserWarning, match="in-VMEM\n?.*parity"):
-            qe.qr_eigenvalues(DenseMatrix.from_array(a, dtype=np.complex64),
-                              QROptions(mode="parity", max_iterations=1))
+        r = qr_eigenvalues(DenseMatrix.from_array(a, dtype=np.complex64),
+                           QROptions(mode="parity", max_iterations=1))
+        assert r.eigenvalues.shape == (n,)
+        assert r.eigenvalues.devices() == {jax.devices()[0]}
+        assert not recwarn.list
 
     def test_parity_within_cap_does_not_warn(self, monkeypatch, recwarn):
         from pcsc_eigenvalue_solver_project_tpu.solvers import (
@@ -236,33 +231,30 @@ class TestParityFallbackWarning:
 
 
 class TestDeviceResidentEntry:
-    """VERDICT r3 task 10: public QR entries must not round-trip
-    device-resident matrices through host numpy."""
+    """Public QR entries must not round-trip device-resident matrices
+    through host numpy."""
 
-    def test_split_planes_no_transfer_for_device_real(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels \
-            import split_planes_f32
-        a = jnp.eye(130, dtype=jnp.float32) * 2.0
-        with jax.transfer_guard("disallow"):
-            planes = split_planes_f32(a)
-        assert planes.shape == (1, 130, 130)
-        assert planes.dtype == jnp.float32
+    @pytest.mark.parametrize("dtype,opts", [
+        (jnp.float32, QROptions(mode="accelerated")),
+        (jnp.complex64, QROptions(mode="accelerated")),
+        (jnp.float32, QROptions(mode="accelerated", compute_vectors=True)),
+        (jnp.float32, QROptions(mode="parity")),
+    ])
+    def test_no_device_to_host_transfer(self, dtype, opts):
+        a = jnp.diag(jnp.arange(1.0, 9.0)).astype(dtype)
+        M = DenseMatrix.from_array(a)
+        with jax.transfer_guard_device_to_host("disallow"):
+            r = qr_eigenvalues(M, opts)
+        assert isinstance(r.eigenvalues, jax.Array)
+        assert spectrum_distance(np.asarray(r.eigenvalues),
+                                 np.arange(1.0, 9.0)) < 1e-4
 
-    def test_dispatch_hands_pallas_the_device_array(self, monkeypatch):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas import (
-            qr_kernels as qk)
-        from pcsc_eigenvalue_solver_project_tpu.solvers import (
-            qr_eigenvalues as qe)
-        seen = {}
-
-        def fake_pallas(a, max_sweeps, tol, **kw):
-            seen["type"] = type(a)
-            return (np.zeros(a.shape[0], np.complex64), 1, True)
-
-        monkeypatch.setattr(qe, "_f32_class_on_accel",
-                            lambda dtype, backend=None: True)
-        monkeypatch.setattr(qk, "qr_eigenvalues_pallas", fake_pallas)
-        a = np.diag(np.arange(1.0, 9.0)).astype(np.float32)
-        qe.qr_eigenvalues(DenseMatrix.from_array(a, dtype=np.float32),
-                          QROptions(mode="accelerated"))
-        assert issubclass(seen["type"], jax.Array)
+    def test_hessenberg_and_qr_entries_stay_on_device(self):
+        from pcsc_eigenvalue_solver_project_tpu import qr_decompose, to_hessenberg
+        a = jnp.asarray(np.random.default_rng(0).standard_normal((12, 12)),
+                        jnp.float32)
+        M = DenseMatrix.from_array(a)
+        with jax.transfer_guard_device_to_host("disallow"):
+            H = to_hessenberg(M)
+            Q, R = qr_decompose(M)
+        assert isinstance(H, jax.Array) and isinstance(Q, jax.Array)

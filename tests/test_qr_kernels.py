@@ -1,9 +1,10 @@
-"""Pallas dense-QR kernels (ops/pallas/qr_kernels.py) vs XLA and numpy.
+"""Dense QR stack (solvers/hessenberg.py, qr.py, qr_eigenvalues.py) at
+small sizes, against NumPy oracles.
 
-Runs the kernel logic in interpreter mode on CPU (same program that runs
-compiled on the TPU). Oracles: the XLA ``hessenberg_dense`` implementation
-and ``numpy.linalg.eigvals`` with assignment matching (conjugate-pair
-ordering is not stable across implementations).
+Oracles: a host Householder Hessenberg reduction written here in NumPy
+(to_hessenberg.hpp:23-80 semantics) and ``numpy.linalg.eigvals`` with
+assignment matching (conjugate-pair ordering is not stable across
+implementations).
 """
 
 import numpy as np
@@ -11,10 +12,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-    hessenberg_planes, qr_eigenvalues_pallas, qr_hessenberg_eig_planes)
+import pcsc_eigenvalue_solver_project_tpu as es
 from pcsc_eigenvalue_solver_project_tpu.solvers.hessenberg import (
-    hessenberg_dense, hessenberg_pallas_backend)
+    hessenberg_dense)
+from pcsc_eigenvalue_solver_project_tpu.solvers.qr_eigenvalues import (
+    _qr_eigenvalues_accel, triangular_eigenvectors)
 
 
 def _match_err(expected, got):
@@ -24,14 +26,42 @@ def _match_err(expected, got):
     return C[r, c].max() / max(np.abs(expected).max(), 1.0)
 
 
+def hessenberg_numpy(a):
+    """Host Householder reduction, the reference's algorithm in NumPy."""
+    H = np.array(a)
+    n = H.shape[0]
+    for k in range(n - 2):
+        x = H[k + 1:, k].copy()
+        if np.linalg.norm(x[1:]) == 0:
+            continue
+        x0 = x[0]
+        sign = x0 / abs(x0) if x0 != 0 else 1.0
+        v = x
+        v[0] += sign * np.linalg.norm(x)
+        vn = np.linalg.norm(v)
+        if vn == 0:
+            continue
+        v = v / vn
+        H[k + 1:, k:] -= 2.0 * np.outer(v, np.conj(v) @ H[k + 1:, k:])
+        H[:, k + 1:] -= 2.0 * np.outer(H[:, k + 1:] @ v, np.conj(v))
+    return H
+
+
+def _accel(a, tol=1e-6, max_it=None, **kw):
+    n = a.shape[0]
+    return es.qr_eigenvalues(
+        es.DenseMatrix.from_array(a),
+        es.QROptions(mode="accelerated", tolerance=tol,
+                     max_iterations=max_it or 60 * max(n, 1), **kw))
+
+
 class TestHessenbergKernel:
     @pytest.mark.parametrize("n", [2, 5, 16, 33])
     def test_matches_xla_real(self, n):
         rng = np.random.default_rng(n)
         a = rng.standard_normal((n, n)).astype(np.float32)
-        ref = np.asarray(hessenberg_dense(jnp.asarray(a)))
-        got = np.asarray(hessenberg_planes(jnp.asarray(a[None]), n,
-                                           interpret=True))[0]
+        ref = hessenberg_numpy(a.astype(np.float64))
+        got = np.asarray(hessenberg_dense(jnp.asarray(a)))
         np.testing.assert_allclose(got, ref, atol=5e-5 * max(n, 1))
 
     @pytest.mark.parametrize("n", [5, 16])
@@ -39,17 +69,14 @@ class TestHessenbergKernel:
         rng = np.random.default_rng(n)
         a = (rng.standard_normal((n, n))
              + 1j * rng.standard_normal((n, n))).astype(np.complex64)
-        ref = np.asarray(hessenberg_dense(jnp.asarray(a)))
-        planes = np.stack([a.real, a.imag]).astype(np.float32)
-        h = np.asarray(hessenberg_planes(jnp.asarray(planes), n,
-                                         interpret=True))
-        got = h[0] + 1j * h[1]
+        ref = hessenberg_numpy(a.astype(np.complex128))
+        got = np.asarray(hessenberg_dense(jnp.asarray(a)))
         np.testing.assert_allclose(got, ref, atol=5e-5 * max(n, 1))
 
     def test_backend_helper_roundtrip(self):
         rng = np.random.default_rng(0)
         a = rng.standard_normal((9, 9)).astype(np.float32)
-        h = hessenberg_pallas_backend(a, interpret=True)
+        h = np.asarray(es.to_hessenberg(es.DenseMatrix.from_array(a)))
         assert h.dtype == np.float32
         assert np.abs(np.tril(h, -2)).max() < 1e-5
         err = _match_err(np.linalg.eigvals(a.astype(np.complex128)),
@@ -61,8 +88,7 @@ class TestHessenbergKernel:
         # tail-zero skip, to_hessenberg.hpp:46-48)
         rng = np.random.default_rng(1)
         a = np.triu(rng.standard_normal((8, 8)), -1).astype(np.float32)
-        got = np.asarray(hessenberg_planes(jnp.asarray(a[None]), 8,
-                                           interpret=True))[0]
+        got = np.asarray(hessenberg_dense(jnp.asarray(a)))
         np.testing.assert_allclose(got, a, atol=1e-6)
 
 
@@ -71,54 +97,50 @@ class TestQREigKernel:
     def test_real_spectrum(self, n):
         rng = np.random.default_rng(n)
         a = rng.standard_normal((n, n)).astype(np.float32)
-        eigs, sweeps, conv = qr_eigenvalues_pallas(a, 60 * n, 1e-6,
-                                                   interpret=True)
-        assert conv
+        r = _accel(a)
+        assert bool(r.converged)
         assert _match_err(np.linalg.eigvals(a.astype(np.complex128)),
-                          eigs) < 5e-5
+                          np.asarray(r.eigenvalues)) < 5e-5
 
     @pytest.mark.parametrize("n", [5, 16])
     def test_complex_spectrum(self, n):
         rng = np.random.default_rng(100 + n)
         a = (rng.standard_normal((n, n))
              + 1j * rng.standard_normal((n, n))).astype(np.complex64)
-        eigs, sweeps, conv = qr_eigenvalues_pallas(a, 60 * n, 1e-6,
-                                                   interpret=True)
-        assert conv
+        r = _accel(a)
+        assert bool(r.converged)
         assert _match_err(np.linalg.eigvals(a.astype(np.complex128)),
-                          eigs) < 5e-5
+                          np.asarray(r.eigenvalues)) < 5e-5
 
     def test_symmetric_exact(self):
         # symmetric: all-real spectrum, tight agreement
         rng = np.random.default_rng(7)
         b = rng.standard_normal((12, 12)).astype(np.float32)
         a = (b + b.T) / 2
-        eigs, _, conv = qr_eigenvalues_pallas(a, 600, 1e-6, interpret=True)
-        assert conv
+        r = _accel(a, max_it=600)
+        assert bool(r.converged)
+        eigs = np.asarray(r.eigenvalues)
         assert np.abs(eigs.imag).max() < 1e-4
         got = np.sort(eigs.real)
         want = np.sort(np.linalg.eigvalsh(a.astype(np.float64)))
         np.testing.assert_allclose(got, want, atol=2e-5 * 12)
 
     def test_hessenberg_input_direct(self):
-        # feed an already-Hessenberg matrix straight to the eig kernel
+        # feed an already-Hessenberg matrix straight to the sweep engine
         rng = np.random.default_rng(3)
-        h = np.triu(rng.standard_normal((10, 10)), -1).astype(np.float32)
-        planes = jnp.asarray(np.stack([h, np.zeros_like(h)]))
-        eig, sweeps, hi = qr_hessenberg_eig_planes(planes, 10, 600, 1e-6,
-                                                   interpret=True)
-        assert int(hi) <= 1
-        e = np.asarray(eig)
+        h = np.triu(rng.standard_normal((10, 10)), -1).astype(np.complex64)
+        r = _qr_eigenvalues_accel(jnp.asarray(h), jnp.asarray(600),
+                                  jnp.asarray(1e-6, jnp.float32))
+        assert bool(r.converged)
         assert _match_err(np.linalg.eigvals(h.astype(np.complex128)),
-                          (e[0] + 1j * e[1])[:10]) < 5e-5
+                          np.asarray(r.eigenvalues)) < 5e-5
 
     def test_respects_max_sweeps(self):
         rng = np.random.default_rng(5)
         a = rng.standard_normal((8, 8)).astype(np.float32)
-        eigs, sweeps, conv = qr_eigenvalues_pallas(a, 2, 1e-12,
-                                                   interpret=True)
-        assert sweeps == 2
-        assert not conv
+        r = _accel(a, tol=1e-12, max_it=2)
+        assert int(r.iterations) == 2
+        assert not bool(r.converged)
 
 
 class TestQRDecomposeKernel:
@@ -126,10 +148,8 @@ class TestQRDecomposeKernel:
         rng = np.random.default_rng(0)
         n = 10
         a = rng.standard_normal((n, n)).astype(np.float32)
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            qr_decompose_planes)
-        R, Q = qr_decompose_planes(jnp.asarray(a[None]), n, interpret=True)
-        R, Q = np.asarray(R)[0], np.asarray(Q)[0]
+        Q, R = es.qr_decompose(es.DenseMatrix.from_array(a))
+        Q, R = np.asarray(Q), np.asarray(R)
         np.testing.assert_allclose(Q @ R, a, atol=5e-6 * n)
         np.testing.assert_allclose(Q.T @ Q, np.eye(n), atol=5e-6 * n)
         assert np.abs(np.tril(R, -1)).max() < 5e-6 * n
@@ -139,52 +159,46 @@ class TestQRDecomposeKernel:
         n = 8
         a = (rng.standard_normal((n, n))
              + 1j * rng.standard_normal((n, n))).astype(np.complex64)
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            qr_decompose_planes)
-        planes = np.stack([a.real, a.imag]).astype(np.float32)
-        Rp, Qp = qr_decompose_planes(jnp.asarray(planes), n, interpret=True)
-        Rc = np.asarray(Rp)[0] + 1j * np.asarray(Rp)[1]
-        Qc = np.asarray(Qp)[0] + 1j * np.asarray(Qp)[1]
+        Q, R = es.qr_decompose(es.DenseMatrix.from_array(a))
+        Qc, Rc = np.asarray(Q), np.asarray(R)
         np.testing.assert_allclose(Qc @ Rc, a, atol=5e-6 * n)
         np.testing.assert_allclose(Qc.conj().T @ Qc, np.eye(n), atol=5e-6 * n)
 
 
 class TestQRParityKernel:
+    def _parity(self, a, max_it, tol):
+        return es.qr_eigenvalues(es.DenseMatrix.from_array(a),
+                                 es.QROptions(mode="parity", tolerance=tol,
+                                              max_iterations=max_it))
+
     def test_symmetric_converges(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            qr_parity_pallas)
         rng = np.random.default_rng(0)
         d = 0.8 ** np.arange(8)
         Qo, _ = np.linalg.qr(rng.standard_normal((8, 8)))
         sym = ((Qo * d) @ Qo.T).astype(np.float32)
-        eigs, it, conv, maxsub = qr_parity_pallas(sym, 2000, 1e-5,
-                                                  interpret=True)
-        assert conv
-        np.testing.assert_allclose(np.sort(eigs.real), np.sort(d), atol=1e-4)
+        r = self._parity(sym, 2000, 1e-5)
+        assert bool(r.converged)
+        np.testing.assert_allclose(np.sort(np.asarray(r.eigenvalues).real),
+                                   np.sort(d), atol=1e-4)
 
     def test_nonconvergence_reports_max_plus_one(self):
         # reference quirk: iterations == max_iterations + 1 on
         # non-convergence (qr_eigenvalues.hpp:69,104)
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            qr_parity_pallas)
         rng = np.random.default_rng(2)
         a = rng.standard_normal((6, 6)).astype(np.float32)
-        eigs, it, conv, maxsub = qr_parity_pallas(a, 3, 1e-12, interpret=True)
-        assert not conv
-        assert it == 4
+        r = self._parity(a, 3, 1e-12)
+        assert not bool(r.converged)
+        assert int(r.iterations) == 4
 
     def test_complex_planes(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            qr_parity_pallas)
         rng = np.random.default_rng(3)
         n = 6
         a = (rng.standard_normal((n, n))
              + 1j * rng.standard_normal((n, n))).astype(np.complex64)
-        eigs, it, conv, maxsub = qr_parity_pallas(a, 4000, 1e-5,
-                                                  interpret=True)
-        assert conv
+        r = self._parity(a, 4000, 1e-5)
+        assert bool(r.converged)
         assert _match_err(np.linalg.eigvals(a.astype(np.complex128)),
-                          eigs) < 1e-3
+                          np.asarray(r.eigenvalues)) < 1e-3
 
 
 class TestEigenvectors:
@@ -192,7 +206,6 @@ class TestEigenvectors:
 
     @pytest.mark.parametrize("make", ["real", "cplx"])
     def test_xla_path_residual(self, make):
-        import pcsc_eigenvalue_solver_project_tpu as es
         rng = np.random.default_rng(3)
         n = 30
         a = rng.standard_normal((n, n))
@@ -210,24 +223,23 @@ class TestEigenvectors:
         # columns normalized
         np.testing.assert_allclose(np.linalg.norm(V, axis=0), 1.0, rtol=1e-6)
 
-    def test_pallas_kernel_vectors_interpret(self):
+    def test_float32_eigenpairs_residual(self):
         rng = np.random.default_rng(4)
         n = 18
         a = rng.standard_normal((n, n)).astype(np.float32)
-        eigs, sweeps, conv, V = qr_eigenvalues_pallas(
-            a, 2000, 1e-6, interpret=True, compute_vectors=True)
-        assert conv
+        r = _accel(a, max_it=2000, compute_vectors=True)
+        assert bool(r.converged)
+        V = np.asarray(r.eigenvectors).astype(np.complex128)
+        eigs = np.asarray(r.eigenvalues)
         res = np.abs(a.astype(np.complex128) @ V - V * eigs[None, :]).max()
         assert res < 5e-5
 
     def test_triangular_backsub_repeated_eigenvalue(self):
-        from pcsc_eigenvalue_solver_project_tpu.ops.pallas.qr_kernels import (
-            triangular_eigenvectors)
         # repeated diagonal: the perturbed-pivot path must stay finite
         T = np.array([[2.0, 1.0, 0.5],
                       [0.0, 2.0, 1.0],
                       [0.0, 0.0, 3.0]], np.complex128)
-        V = triangular_eigenvectors(T)
+        V = np.asarray(triangular_eigenvectors(jnp.asarray(T), 1e-15))
         assert np.all(np.isfinite(V))
         # the well-separated eigenvalue's vector is exact
         v3 = V[:, 2] / np.linalg.norm(V[:, 2])
@@ -235,6 +247,5 @@ class TestEigenvectors:
         assert np.abs(r).max() < 1e-12
 
     def test_parity_mode_rejects_vectors(self):
-        import pcsc_eigenvalue_solver_project_tpu as es
         with pytest.raises(ValueError, match="compute_vectors"):
             es.QROptions(mode="parity", compute_vectors=True)

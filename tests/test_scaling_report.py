@@ -11,7 +11,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from tools.scaling_report import build_step, collective_bytes
+from tools.scaling_report import PEAKS, build_step, collective_bytes
 
 
 def _comm(n, bandwidth, n_devices):
@@ -43,8 +43,8 @@ class TestHaloCommVolume:
         comm, A = _comm(65536, 16, 8)
         nnz = 65536 * 33
         local_bytes = nnz * 2 / 8
-        t_compute = local_bytes / 0.7e12
-        t_comm = comm["collective-permute"] / 0.4e12
+        t_compute = local_bytes / PEAKS["hbm_bytes_per_s"]
+        t_comm = comm["collective-permute"] / PEAKS["link_bytes_per_s"]
         bound = t_compute / (t_compute + t_comm)
         assert bound >= 0.80
 
@@ -69,6 +69,6 @@ class TestGELLPrunedCommVolume:
         from tools.scaling_report import build_gell_step
         step, A, x0, nnz = build_gell_step(65536, 16, 2, 8)
         local_bytes = nnz * 8 / 8
-        t_compute = local_bytes / 0.3e12
-        t_comm = A.comm_bytes_per_matvec / 0.4e12
+        t_compute = local_bytes / PEAKS["hbm_bytes_per_s"]
+        t_comm = A.comm_bytes_per_matvec / PEAKS["link_bytes_per_s"]
         assert t_compute / (t_compute + t_comm) >= 0.80

@@ -1,9 +1,8 @@
 """Split-plane complex subsystem tests.
 
-The TPU backend has no complex dtypes, so complex eigenproblems run as
-(2, n) real planes (matrix/split_complex.py, ops/split_complex.py). These
-tests pin the plane algebra against numpy complex, the fused kernel
-against the XLA plane path, and the split power method against the
+Complex eigenproblems can run as (2, n) real planes (matrix/split_complex.py,
+ops/split_complex.py). These tests pin the plane algebra and the plane
+SpMV against numpy complex, and the split power method against the
 complex-dtype solver.
 """
 
@@ -15,7 +14,7 @@ import pytest
 from pcsc_eigenvalue_solver_project_tpu import SolverOptions, SparseCSR, power_method
 from pcsc_eigenvalue_solver_project_tpu.matrix.dia import SparseDIA
 from pcsc_eigenvalue_solver_project_tpu.matrix.split_complex import SplitComplexDIA
-from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import dia_matvec_planes
+from pcsc_eigenvalue_solver_project_tpu.ops.dia import dia_matvec_planes
 from pcsc_eigenvalue_solver_project_tpu.ops.split_complex import (
     from_planes, splitc_div_scalar, splitc_is_close_relative, splitc_mul,
     splitc_norm, splitc_vdot, to_planes)
@@ -70,15 +69,19 @@ class TestSplitKernel:
         (20000, tuple(range(-8, 9))),
         (16384, (-130, 0, 129)),
     ])
-    def test_interpret_matches_xla_planes(self, n, offsets):
+    def test_planes_match_complex_oracle(self, n, offsets):
         data = _rand_band(n, offsets, 7, np.complex64)
         planes = jnp.asarray(np.stack([data.real, data.imag]).astype(np.float32))
         rng = np.random.default_rng(8)
-        xp = jnp.asarray(rng.random((2, n)).astype(np.float32))
-        y_ref = dia_matvec_planes(planes, offsets, xp, force="xla")
-        y_ker = dia_matvec_planes(planes, offsets, xp, force="interpret")
-        np.testing.assert_allclose(np.asarray(y_ker), np.asarray(y_ref),
-                                   rtol=2e-5, atol=2e-5)
+        xr = rng.random((2, n)).astype(np.float32)
+        x = xr[0].astype(np.float64) + 1j * xr[1]
+        y_ref = np.zeros(n, np.complex128)
+        for d, off in enumerate(offsets):
+            lo, hi = max(0, -off), min(n, n - off)
+            y_ref[lo:hi] += data[d, lo:hi].astype(np.complex128) * x[lo + off:hi + off]
+        y = from_planes(np.asarray(dia_matvec_planes(planes, offsets,
+                                                     jnp.asarray(xr))))
+        np.testing.assert_allclose(y, y_ref, rtol=2e-5, atol=2e-5)
 
     def test_planes_match_complex_matvec(self):
         n = 300
@@ -150,20 +153,25 @@ class TestInterleavedSplitComplex:
         return SplitComplexDIA(planes=jnp.asarray(planes), offsets=offs,
                                shape=(n, n))
 
-    def test_il_planes_matvec_matches_xla(self):
+    def test_il_planes_matvec_matches_oracle(self):
         from pcsc_eigenvalue_solver_project_tpu.ops.split_complex import from_planes
         sc = self._banded_planes(20000, (-7, -2, 0, 3, 7), seed=1)
         il = sc.interleaved()
         rng = np.random.default_rng(2)
         zp = jnp.asarray(np.stack([rng.standard_normal(20000),
                                    rng.standard_normal(20000)]), jnp.float32)
-        y_ref = from_planes(np.asarray(sc.matvec(zp, force="xla")))
+        z = from_planes(np.asarray(zp, np.float64))
+        pl = np.asarray(sc.planes, np.float64)
+        y_ref = np.zeros(20000, np.complex128)
+        for d, off in enumerate(sc.offsets):
+            lo, hi = max(0, -off), min(20000, 20000 - off)
+            y_ref[lo:hi] += (pl[0, d, lo:hi] + 1j * pl[1, d, lo:hi]) \
+                * z[lo + off:hi + off]
+        y_nat = from_planes(np.asarray(sc.matvec(zp)))
+        np.testing.assert_allclose(y_nat, y_ref, rtol=2e-4, atol=2e-4)
         y_il = from_planes(np.asarray(il.decode_vec(
-            il.matvec(il.encode_vec(zp), force="interpret"))))
+            il.matvec(il.encode_vec(zp)))))
         np.testing.assert_allclose(y_il, y_ref, rtol=2e-4, atol=2e-4)
-        y_fb = from_planes(np.asarray(il.decode_vec(
-            il.matvec(il.encode_vec(zp), force="xla"))))
-        np.testing.assert_allclose(y_fb, y_ref, rtol=1e-6, atol=1e-6)
 
     def test_power_method_through_il(self, key):
         from pcsc_eigenvalue_solver_project_tpu.ops.split_complex import from_planes

@@ -1,9 +1,8 @@
 """Scaling-efficiency report for the distributed SpMV power step.
 
-BASELINE.md's north star is ">= 80% SpMV scaling efficiency 1 chip -> N"
+BASELINE.md's north star is ">= 80% SpMV scaling efficiency 1 device -> N"
 (reference hot loop: /root/reference/src/power_method/power_method.hpp:68-91).
-Real multi-chip hardware is not reachable from this box, so the report
-combines what CAN be measured here:
+The report runs on a fake CPU mesh and combines what that can show:
 
 1. **Comm volume from the compiled program** (exact, hardware-independent):
    parse the XLA HLO of the jitted distributed power step on an N-device
@@ -13,16 +12,17 @@ combines what CAN be measured here:
    same step at n and 4n and checking the collective bytes are identical.
 
 2. **Per-N step wall-clock on the fake mesh** (sanity only — fake-mesh
-   devices share one socket, so this measures overhead structure, not ICI).
+   devices share one socket, so this measures overhead structure, not the
+   interconnect).
 
-3. **Roofline efficiency bound**: the single-chip step streams
-   ``local_bytes = nnz*itemsize/N`` from HBM; the halo adds
-   ``comm_bytes`` over ICI. With measured single-chip bandwidth B_hbm
-   (from BENCH_r01: 291 Gnnz/s * 2 B/nnz ~ 0.6 TB/s effective) and v5e
-   ICI ~ 0.4 TB/s, the non-overlapped efficiency bound is
+3. **Roofline efficiency bound**: each device's step streams
+   ``local_bytes = nnz*itemsize/N`` from device memory; the halo adds
+   ``comm_bytes`` over the interconnect. With the published H100 peaks
+   (``PEAKS``), the non-overlapped efficiency bound is
    ``t_compute / (t_compute + t_comm)``; XLA overlaps the two independent
-   permutes with the local band multiply, so the measured number should
-   sit between this bound and 1.0.
+   permutes with the local band multiply, so a measured number should
+   sit between this bound and 1.0. It is a bound from bytes and data-sheet
+   rates, not a measurement.
 
 Emits one JSON object; ``--json-only`` for machine consumption.
 """
@@ -44,11 +44,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", "cpu")  # the fake mesh is CPU devices
 
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
+
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, and NVLink 900 GB/s total,
+# i.e. 450 GB/s each way to the other cards of the host.
+PEAKS = {"hbm_bytes_per_s": 3.35e12, "link_bytes_per_s": 450e9}
 
 _DTYPE_BYTES = {"f32": 4, "f64": 8, "bf16": 2, "s32": 4, "u32": 4,
                 "pred": 1, "c64": 8, "c128": 16}
@@ -187,11 +191,10 @@ def measure_gell(n: int, bandwidth: int, n_far: int, devices, reps: int = 10):
 
 
 def build_il_step(n: int, bandwidth: int, n_devices: int):
-    """Jitted distributed interleaved-DIA power step (the flagship
-    single-chip kernel's distributed form, parallel/dia.py: seam-lane
-    ppermute halos)."""
+    """Jitted distributed interleaved-DIA power step (parallel/dia.py:
+    seam-lane ppermute halos)."""
     from pcsc_eigenvalue_solver_project_tpu.models.generators import banded_full
-    from pcsc_eigenvalue_solver_project_tpu.ops.pallas.dia_spmv import (
+    from pcsc_eigenvalue_solver_project_tpu.ops.dia import (
         dia_matvec_il_window, il_window_halo)
     from pcsc_eigenvalue_solver_project_tpu.parallel.dia import (
         dia_il_halo_window, encode_vec_il_sharded, partition_dia_il)
@@ -206,11 +209,11 @@ def build_il_step(n: int, bandwidth: int, n_devices: int):
 
     def local_step(data_il, x_local):
         w = dia_il_halo_window(x_local, pr)
-        y = dia_matvec_il_window(data_il, A.offsets, w, tile_s=A.tile_s)
+        y = dia_matvec_il_window(data_il, A.offsets, w)
         norm = psum_norm(y)
         x_new = y / jnp.where(norm == 0, 1.0, norm).astype(y.dtype)
         w2 = dia_il_halo_window(x_new, pr)
-        z = dia_matvec_il_window(data_il, A.offsets, w2, tile_s=A.tile_s)
+        z = dia_matvec_il_window(data_il, A.offsets, w2)
         lam = psum_vdot(x_new, z)
         return x_new, lam
 
@@ -324,8 +327,7 @@ def main():
     halo_bytes_big = big["comm_bytes"].get("collective-permute", 0)
     halo_n_independent = halo_bytes_small == halo_bytes_big
 
-    # roofline bound for the real chip (v5e): HBM ~0.8 TB/s effective on
-    # this kernel (BENCH_r01 291 Gnnz/s bf16 ~ 0.6-0.8 TB/s), ICI ~0.4 TB/s
+    # roofline bound from the published H100 peaks (PEAKS)
     nnz = rows[0]["nnz"]
     itemsize = 2  # bf16 fast path
     eff = {}
@@ -333,8 +335,8 @@ def main():
         nd = r["n_devices"]
         local_bytes = nnz * itemsize / nd
         comm_bytes = r["comm_bytes"].get("collective-permute", 0)
-        t_compute = local_bytes / 0.7e12
-        t_comm = comm_bytes / 0.4e12
+        t_compute = local_bytes / PEAKS["hbm_bytes_per_s"]
+        t_comm = comm_bytes / PEAKS["link_bytes_per_s"]
         eff[nd] = dict(
             local_bytes=int(local_bytes), comm_bytes=int(comm_bytes),
             comm_fraction=t_comm / (t_comm + t_compute),
@@ -350,8 +352,8 @@ def main():
     for r in [g8]:
         local_bytes = r["nnz"] * 8 / 8  # ~8 B/nnz pack traffic per device
         comm_bytes = r["plan_bytes"]
-        t_compute = local_bytes / 0.3e12   # measured GELL effective BW
-        t_comm = comm_bytes / 0.4e12
+        t_compute = local_bytes / PEAKS["hbm_bytes_per_s"]
+        t_comm = comm_bytes / PEAKS["link_bytes_per_s"]
         gell_eff = dict(
             local_bytes=int(local_bytes), comm_bytes=int(comm_bytes),
             hlo_collective_bytes=r["comm_bytes"],
@@ -379,9 +381,8 @@ def main():
         n=args.n, bandwidth=args.bandwidth,
         value_semantics=(
             "analytic roofline BOUND computed from exact per-step HLO "
-            "collective bytes and measured single-chip bandwidths — NOT a "
-            "multi-chip wall-clock measurement (no multi-chip hardware is "
-            "reachable from this box)"),
+            "collective bytes and the published H100 bandwidths — NOT a "
+            "multi-device wall-clock measurement"),
         halo_bytes_n_independent=halo_n_independent,
         per_device=eff,
         fake_mesh_step_s={r["n_devices"]: round(r["step_s"], 6) for r in rows},
